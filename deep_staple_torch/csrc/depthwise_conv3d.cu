@@ -53,10 +53,6 @@ __device__ __forceinline__ void load(const float* p, float (&v)[4]) {
   const float4 t = *reinterpret_cast<const float4*>(p);
   v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
 }
-__device__ __forceinline__ void load(const float* p, float (&v)[2]) {
-  const float2 t = *reinterpret_cast<const float2*>(p);
-  v[0] = t.x; v[1] = t.y;
-}
 __device__ __forceinline__ void load(const float* p, float (&v)[1]) { v[0] = *p; }
 __device__ __forceinline__ void load(const __nv_bfloat16* p, float (&v)[2]) {
   const float2 t = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
@@ -68,9 +64,6 @@ __device__ __forceinline__ void load(const __nv_bfloat16* p, float (&v)[1]) {
 
 __device__ __forceinline__ void store(float* p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void store(float* p, const float (&v)[2]) {
-  *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
 }
 __device__ __forceinline__ void store(float* p, const float (&v)[1]) { *p = v[0]; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, const float (&v)[2]) {
@@ -274,7 +267,8 @@ cudaError_t launch_stride(const void* x, const float* w27, void* y, int stride, 
 
 // x: (B, D, H, W, C) contiguous, f32 (is_bf16 = 0) or bf16 (is_bf16 = 1);
 // w27: (27, C) f32 contiguous; y: (B, ceil(D/s), ceil(H/s), ceil(W/s), C) in
-// x's dtype. The vector width is the widest that C and the pointers allow.
+// x's dtype. Vectors of 4 x f32 or 2 x bf16 where C and the pointers allow
+// them (every shape of the model), else one channel per thread.
 extern "C" int dw3d_fwd(const void* x, const void* w27, void* y, int is_bf16, int stride,
                         int B, int D, int H, int W, int C, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -290,8 +284,6 @@ extern "C" int dw3d_fwd(const void* x, const void* w27, void* y, int is_bf16, in
   } else {
     if (C % 4 == 0 && align % 16 == 0)
       err = launch_stride<float, 4>(x, w, y, stride, B, D, H, W, C, s);
-    else if (C % 2 == 0 && align % 8 == 0)
-      err = launch_stride<float, 2>(x, w, y, stride, B, D, H, W, C, s);
     else
       err = launch_stride<float, 1>(x, w, y, stride, B, D, H, W, C, s);
   }

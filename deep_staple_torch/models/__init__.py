@@ -1,4 +1,4 @@
-from .lraspp3d import MobileNetASPP3D, MobileNetLRASPP3D, count_params, init_weights
+from .lraspp3d import MobileNetASPP3D, MobileNetLRASPP3D, count_params
 from .norm import BatchNorm
 
-__all__ = ["BatchNorm", "MobileNetASPP3D", "MobileNetLRASPP3D", "count_params", "init_weights"]
+__all__ = ["BatchNorm", "MobileNetASPP3D", "MobileNetLRASPP3D", "count_params"]

@@ -23,7 +23,6 @@ final trilinear upsample runs in float32 (`lraspp3d.py:460-473`).
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
@@ -259,8 +258,8 @@ class MobileNetLRASPP3D(nn.Module):
             stay float32.
         bn_mode: 'batch' | 'async' | 'slab' (eval is the same in all three).
 
-    Parameters start at zero (BatchNorms at identity): load a checkpoint, or
-    draw weights with `init_weights(model, torch.Generator())`.
+    Parameters start at zero (BatchNorms at identity): load a checkpoint.
+    Random init comes with the training slice.
     """
 
     head_type = "lraspp"
@@ -296,30 +295,6 @@ class MobileNetASPP3D(MobileNetLRASPP3D):
     """Variant with the plain conv head (reference MobileNet_ASPP_3D :160-257)."""
 
     head_type = "conv"
-
-
-def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Random init with torch semantics (`lraspp3d.py:54-65`): backbone convs
-    kaiming-normal with fan-out; ASPP and head convs torch's default
-    U(+-1/sqrt(fan_in)) for kernels and biases. BatchNorms stay at
-    scale 1, bias 0, mean 0, var 1."""
-    with torch.no_grad():
-        for name, mod in model.named_modules():
-            if isinstance(mod, DepthwiseConv3D):
-                # torch's fan_out of a (C, 1, 3, 3, 3) weight is C * 27.
-                fan_out = mod.kernel.shape[1] * 27
-                mod.kernel.normal_(0.0, math.sqrt(2.0 / fan_out), generator=generator)
-            elif isinstance(mod, Conv3d):
-                o, i, k = mod.kernel.shape[:3]
-                rf = k ** 3
-                if name.startswith(("him.", "lom.")):
-                    mod.kernel.normal_(0.0, math.sqrt(2.0 / (o * rf)), generator=generator)
-                else:
-                    bound = 1.0 / math.sqrt(i * rf)
-                    mod.kernel.uniform_(-bound, bound, generator=generator)
-                    if mod.bias is not None:
-                        mod.bias.uniform_(-bound, bound, generator=generator)
-    return model
 
 
 def count_params(model: nn.Module) -> int:

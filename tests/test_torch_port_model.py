@@ -140,17 +140,17 @@ def test_conv_head_variant_matches_flax(image):
                                rtol=1e-4, atol=2e-5)
 
 
-def test_init_weights_seeded_torch_semantics():
-    from deep_staple_torch.models import init_weights
-
-    a = init_weights(MobileNetLRASPP3D(num_classes=2), torch.Generator().manual_seed(7))
-    b = init_weights(MobileNetLRASPP3D(num_classes=2), torch.Generator().manual_seed(7))
-    for (k, va), vb in zip(a.state_dict().items(), b.state_dict().values()):
-        assert torch.equal(va, vb), k
-    dw = a.lom.InvertedResidual3D_6.ConvBN_1.Conv_0.kernel.detach()  # (27, 384), fan_out 384 * 27
-    assert abs(float(dw.std()) - (2.0 / (384 * 27)) ** 0.5) < 0.1 * (2.0 / (384 * 27)) ** 0.5
-    head = a.head.Conv_1.kernel.detach()  # torch default U(+-1/sqrt(fan_in)), fan_in 128
-    assert float(head.abs().max()) <= 128 ** -0.5
+def test_interop_load_is_strict(lraspp_variables):
+    """A variable set with a leaf missing, or a leaf of the wrong shape, is
+    refused rather than half-loaded."""
+    missing = state_dict_to_flax(flax_to_state_dict(lraspp_variables))
+    del missing["batch_stats"]["aspp"]["ConvBN_6"]["BatchNorm_0"]["var"]
+    with pytest.raises(RuntimeError, match="Missing key"):
+        load_flax_variables(MobileNetLRASPP3D(num_classes=2), missing)
+    wrong = state_dict_to_flax(flax_to_state_dict(lraspp_variables))
+    wrong["params"]["head"]["Conv_1"]["kernel"] = np.zeros((1, 1, 1, 128, 3), np.float32)
+    with pytest.raises(RuntimeError, match="size mismatch"):
+        load_flax_variables(MobileNetLRASPP3D(num_classes=2), wrong)
 
 
 def test_make_model_3d_only():
