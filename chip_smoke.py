@@ -1,19 +1,36 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port (`deep_staple_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed 0] [--phases device,build,kernels,serve,e2e,times]
-                          [--json-out FILE]
+    python3 chip_smoke.py [--seed 0] [--phases PHASE,...] [--json-out FILE]
 
-Run from the repository root. It builds every kernel of the port's serving
-path from the sources in the checkout, holds each against its plain PyTorch
-version on the card, drives the serving path at full size (6 synthetic
-NIfTI volumes, size 128^3, W-crop (45, 95), eval x2.0, batch 4, in float32
-and bfloat16), checks the card against the CPU end to end, and times each
-kernel beside its bound, its plain version and the library call that
-computes the same function. Before its last line it prints the card's name
-and power limit as nvidia-smi gives them and one JSON line with a record for
-each kernel; the last line is {"ok": true, "device": {...}}. It exits
-non-zero without CUDA, outside the repository, and when any phase fails.
+    phases: device, build, kernels, train_kernels, serve, e2e, profile,
+            train, train_e2e, train_profile, times (default: all)
+
+Run from the repository root. It builds every kernel of the port from the
+sources in the checkout (one nvcc per source, all at once), holds each
+against its plain PyTorch version on the card at the shapes the main paths
+give it, and drives both main paths at full size:
+
+  * serving: 6 synthetic NIfTI volumes, size 128^3, W-crop (45, 95), eval
+    x2.0, batch 4, in float32 and bfloat16, checked against the CPU end to
+    end;
+  * training: `make_train_step` at batch 8 on 128x128x50 volumes
+    pre-interpolated x1.5 to (8, 192, 192, 75), 64 synthetic samples. The
+    production configuration (`TrainConfig.tpu_production`: fused
+    out-of-line DP pass, 'fast-sep' augmentation, bfloat16, no remat) runs
+    2 slab-BatchNorm warmup steps then 3 async steps; the reference-default
+    configuration (strict out-of-line, 'reference' augmentation, float32,
+    exact BatchNorm, remat) runs 2 steps. One small float32 step is checked
+    against the CPU.
+
+Each path is driven with every kernel's launch count set to 0 just before
+it and read just after. It times each kernel beside its bound, its plain
+version and the library call that computes the same function, profiles one
+eval step and one production train step, and prints, before its last line,
+the card's name and power limit as nvidia-smi gives them and one JSON line
+with a record for each kernel; the last line is {"ok": true, "device": ...}.
+It exits non-zero without CUDA, outside the repository, and when any phase
+fails.
 """
 
 from __future__ import annotations
@@ -33,7 +50,8 @@ import numpy as np
 
 REPO = Path(__file__).resolve().parent
 WORK = REPO / "build" / "chip_smoke"
-PHASES = ("device", "build", "kernels", "serve", "e2e", "profile", "times")
+PHASES = ("device", "build", "kernels", "train_kernels", "serve", "e2e", "profile",
+          "train", "train_e2e", "train_profile", "times")
 
 # The depthwise conv's shapes at the serve CLI's defaults: size 128^3 with
 # crop (45, 95) gives 128x128x50, eval x2.0 gives 256x256x100 at the input,
@@ -44,18 +62,52 @@ SERVING_DW = (
     + [((4, 128, 128, 50, 192), 2)]
     + [((4, 64, 64, 25, c), 1) for c in (192, 384, 384)]
 )
+# Training at full size (`train/prepare.py:250`, `core/config.py:52,63`):
+# batch 8, base volume 128x128x50 after the W-crop, pre-interpolation x1.5
+# to 192x192x75; block 0 halves it to 96x96x38, block 6 to 48x48x19. The ten
+# depthwise calls of one forward; the backward runs grad_x and grad_w at the
+# same shapes.
+TRAIN_BASE = (8, 128, 128, 50)
+TRAIN_DW = (
+    [((8, 96, 96, 38, c), 1) for c in (32, 96, 96, 144, 144, 192)]
+    + [((8, 96, 96, 38, 192), 2)]
+    + [((8, 48, 48, 19, c), 1) for c in (192, 384, 384)]
+)
+DATASET_LEN = 64
 # Odd extents and channel counts that are not a multiple of the vector width.
 EDGE_DW = [
     ((2, 7, 5, 4, 5), 1), ((2, 7, 5, 4, 5), 2),
     ((1, 8, 6, 5, 130), 1), ((1, 8, 6, 5, 130), 2),
     ((1, 9, 7, 5, 6), 2), ((3, 25, 9, 50, 130), 1), ((1, 25, 50, 25, 130), 2),
 ]
+# K1 (one scanline pass) at the three passes of a full-size batch: rows of W
+# lanes, then of H, then of D; and an odd L.
+SEP_EDGE = (4001, 37)
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA data sheet, dense): HBM
 # bytes/s, and float32 FLOP/s outside the tensor cores. The depthwise conv
-# accumulates in float32 in both dtypes.
+# and its gradients accumulate in float32 in both dtypes.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+# About 20 integer and float operations per element of a K1 pass (clamp,
+# floor, index, gather, two sign extensions, the lerp, round, select).
+SEP_OPS_PER_ELEM = 20
+
+KERNELS = {
+    "depthwise_conv3d_fwd": ("deep_staple_torch/csrc/depthwise_conv3d.cu",
+                             "deep_staple_tpu/ops/conv3d_pallas.py:90"),
+    "depthwise_conv3d_grad_x": ("deep_staple_torch/csrc/depthwise_conv3d.cu",
+                                "deep_staple_tpu/ops/conv3d_pallas.py:267"),
+    "depthwise_conv3d_grad_w": ("deep_staple_torch/csrc/depthwise_conv3d.cu",
+                                "deep_staple_tpu/ops/conv3d_pallas.py:173"),
+    "sep_warp_pass": ("deep_staple_torch/csrc/sep_warp_pass.cu",
+                      "deep_staple_tpu/ops/sep_warp.py:323"),
+}
+# The kernels each main path must launch.
+PATH_KERNELS = {"serve": ("depthwise_conv3d_fwd",), "train": tuple(KERNELS)}
+# The device of the kernel and training phases. main() runs only with CUDA;
+# a CPU rehearsal of the control flow may import this module and set "cpu".
+DEV = "cuda"
 
 
 def log(msg=""):
@@ -80,6 +132,88 @@ def timed_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def _wrappers():
+    from deep_staple_torch.ops import conv3d_dw, sep_warp
+
+    return {
+        "depthwise_conv3d_fwd": conv3d_dw.depthwise_conv3d_fwd,
+        "depthwise_conv3d_grad_x": conv3d_dw.depthwise_conv3d_grad_x,
+        "depthwise_conv3d_grad_w": conv3d_dw.depthwise_conv3d_grad_w,
+        "sep_warp_pass": sep_warp.sep_warp_pass,
+    }
+
+
+def reset_counts():
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def _record_path(rec, path, counts):
+    """Store a main path's launch counts; fail if one of its kernels never ran."""
+    rec.setdefault("main_path_launches", {})[path] = counts
+    missing = [k for k in PATH_KERNELS[path] if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"the {path} path launched no {missing}: {counts}")
+
+
+def _tap_pairs(n: int, stride: int) -> int:
+    """(output, tap) pairs of one axis whose input lies inside the volume."""
+    return sum(1 for o in range(-(-n // stride)) for d in range(3) if 0 <= stride * o + d - 1 < n)
+
+
+def dw_ops(shape, stride) -> int:
+    """Flop of a depthwise call (or of either gradient): one multiply-add per
+    (output, tap) pair inside the volume, per channel."""
+    B, D, H, W, C = shape
+    return 2 * B * C * math.prod(_tap_pairs(n, stride) for n in (D, H, W))
+
+
+def bound(nbytes, ops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _bf16_ulp(ref32):
+    import torch
+
+    _, e = torch.frexp(ref32)
+    return torch.ldexp(torch.ones_like(ref32), (e - 8).to(torch.int32))
+
+
+def compare(got, ref32, dtype):
+    """A kernel result against its plain version's float32 result.
+
+    Only the summation order differs (and FMA contraction): float32 results
+    agree to rtol 1e-5, atol 1e-5. In bfloat16 both round such results, so
+    they lie within 1 bf16 ulp plus that float32 tolerance (which matters
+    only under cancellation near zero). -> (ok, max_abs, tolerance text)."""
+    import torch
+
+    diff = (got.float() - ref32.to(dtype).float()).abs()
+    f32_tol = 1e-5 + 1e-5 * ref32.abs()
+    if dtype == torch.float32:
+        ok = bool((diff <= f32_tol).all())
+        tol = "rtol 1e-5, atol 1e-5"
+    else:
+        ulp = _bf16_ulp(torch.maximum(ref32.abs(), got.float().abs()))
+        ok = bool((diff <= ulp + f32_tol).all())
+        tol = "1 bf16 ulp + f32 tol"
+    return ok, float(diff.max()), tol
+
+
+def compare_gw(got, ref):
+    """A weight gradient (27, C) float32 against its plain version: both sum
+    the same products in float32 in other orders; held to 1e-5 of max|ref|."""
+    diff = float((got - ref).abs().max())
+    tol = 1e-5 * float(ref.abs().max())
+    return diff <= tol, diff, "atol 1e-5 x max|gw|"
+
+
 # ----------------------------------------------------------------- phases
 
 def phase_device(rec):
@@ -98,73 +232,142 @@ def phase_device(rec):
 
 
 def phase_build(rec):
-    from deep_staple_torch.ops import conv3d_dw
+    from deep_staple_torch.ops import conv3d_dw, cuda_build, sep_warp
 
     t = time.perf_counter()
-    so, messages = conv3d_dw.build_library(verbose=True)
+    built = cuda_build.build_libraries(verbose=True)
     conv3d_dw.load_library()
+    sep_warp.load_library()
     rec["build_s"] = time.perf_counter() - t
-    log(f"[build] {so.relative_to(REPO)} in {rec['build_s']:.1f} s")
-    for ln in messages.splitlines():
-        if "registers" in ln or "spill" in ln or "error" in ln.lower():
-            log(f"[build]   {ln.strip()}")
-
-
-def _bf16_ulp(ref32):
-    import torch
-
-    _, e = torch.frexp(ref32)
-    return torch.ldexp(torch.ones_like(ref32), (e - 8).to(torch.int32))
+    for so, messages in built.values():
+        log(f"[build] {so.relative_to(REPO)}")
+        for ln in messages.splitlines():
+            if "registers" in ln or "spill" in ln or "error" in ln.lower() or "Function" in ln:
+                log(f"[build]   {ln.strip()}")
+    log(f"[build] {len(built)} libraries in {rec['build_s']:.1f} s (nvcc in parallel)")
 
 
 def phase_kernels(rec, seed):
-    """depthwise_conv3d (the Hopper kernel) against depthwise_conv3d_plain on
-    the card, at every shape serving gives it (batch 4) and the edge shapes."""
+    """The forward kernel against depthwise_conv3d_plain on the card, at
+    every shape serving gives it (batch 4) and the edge shapes."""
     import torch
 
-    from deep_staple_torch.ops.conv3d_dw import depthwise_conv3d, depthwise_conv3d_plain
+    from deep_staple_torch.ops.conv3d_dw import depthwise_conv3d_fwd, depthwise_conv3d_plain
 
-    cases = sorted(set(SERVING_DW)) + EDGE_DW
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    worst = {"float32": [0.0, 0.0], "bfloat16": [0.0, 0.0]}
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    worst = {}
     failures = []
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        for shape, stride in cases:
-            C = shape[-1]
-            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-            w = torch.randn(27, C, generator=gen, device="cuda")
-            with torch.inference_mode():
-                got = depthwise_conv3d(x, w, stride)
-                torch.cuda.synchronize()
+        for shape, stride in sorted(set(SERVING_DW)) + EDGE_DW:
+            x = torch.randn(shape, generator=gen, device=DEV).to(dtype)
+            w = torch.randn(27, shape[-1], generator=gen, device=DEV)
+            with torch.no_grad():
+                got = depthwise_conv3d_fwd(x, w, stride)
                 ref32 = depthwise_conv3d_plain(x.float(), w, stride)
-                torch.cuda.synchronize()
-            diff = (got.float() - ref32.to(dtype).float()).abs()
-            max_abs = float(diff.max())
-            big = ref32.abs() >= 1e-2  # relative error where it means something
-            max_rel = float((diff[big] / ref32.abs()[big]).max()) if big.any() else 0.0
-            # Only the summation order differs (and FMA contraction): the f32
-            # results agree to rtol 1e-5, atol 1e-5. In bf16 both round such
-            # results, so they lie within 1 bf16 ulp plus that f32 tolerance
-            # (which matters only under cancellation near zero).
-            f32_tol = 1e-5 + 1e-5 * ref32.abs()
-            if dtype == torch.float32:
-                tol = "rtol 1e-5, atol 1e-5"
-                ok = bool((diff <= f32_tol).all())
-            else:
-                tol = "1 bf16 ulp + f32 tol"
-                ok = bool((diff <= _bf16_ulp(torch.maximum(ref32.abs(), got.float().abs())) + f32_tol).all())
-            worst[dname][0] = max(worst[dname][0], max_abs)
-            worst[dname][1] = max(worst[dname][1], max_rel)
-            log(f"[kernels] {dname:8s} {str(tuple(shape)):22s} s{stride} max_abs {max_abs:.3e} "
-                f"max_rel(|ref|>=1e-2) {max_rel:.3e} ({tol}) {'ok' if ok else 'FAIL'}")
+                ok, max_abs, tol = compare(got, ref32, dtype)
+            worst[dname] = max(worst.get(dname, 0.0), max_abs)
+            log(f"[kernels] fwd {dname:8s} {str(tuple(shape)):22s} s{stride} max_abs {max_abs:.3e} "
+                f"({tol}) {'ok' if ok else 'FAIL'}")
             if not ok:
-                failures.append((dname, shape, stride))
-            del x, w, got, ref32, diff, big, f32_tol
+                failures.append(("fwd", dname, shape, stride))
+            del x, w, got, ref32
             torch.cuda.empty_cache()
-    rec["kernel_check"] = {k: {"max_abs": v[0], "max_rel": v[1]} for k, v in worst.items()}
+    rec.setdefault("kernel_check", {})["depthwise_conv3d_fwd.serve"] = worst
     if failures:
         raise AssertionError(f"kernel disagrees with its plain version: {failures}")
+
+
+def phase_train_kernels(rec, seed):
+    """The three depthwise kernels (forward, grad_x, grad_w) at every shape
+    training gives them (batch 8) and the edge shapes, in float32 and
+    bfloat16, and K1 at the pass shapes of a full-size batch and an odd L,
+    each against its plain version on the same inputs on the card."""
+    import torch
+
+    from deep_staple_torch.ops.conv3d_dw import (
+        depthwise_conv3d_fwd,
+        depthwise_conv3d_grad_w,
+        depthwise_conv3d_grad_w_plain,
+        depthwise_conv3d_grad_x,
+        depthwise_conv3d_grad_x_plain,
+        depthwise_conv3d_plain,
+        out_extent,
+    )
+    from deep_staple_torch.ops.sep_warp import sep_warp_pass, sep_warp_pass_plain
+
+    gen = torch.Generator(device=DEV).manual_seed(seed + 1)
+    worst = {}
+    failures = []
+
+    def note(kernel, dname, shape, stride, result):
+        ok, max_abs, tol = result
+        key = f"{kernel}.train"
+        worst.setdefault(key, {})
+        worst[key][dname] = max(worst[key].get(dname, 0.0), max_abs)
+        log(f"[train_kernels] {kernel:24s} {dname:8s} {str(tuple(shape)):22s} s{stride} "
+            f"max_abs {max_abs:.3e} ({tol}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append((kernel, dname, shape, stride))
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for shape, stride in sorted(set(TRAIN_DW)) + EDGE_DW:
+            B, D, H, W, C = shape
+            oshape = (B, out_extent(D, stride), out_extent(H, stride), out_extent(W, stride), C)
+            x = torch.randn(shape, generator=gen, device=DEV).to(dtype)
+            g = torch.randn(oshape, generator=gen, device=DEV).to(dtype)
+            w = torch.randn(27, C, generator=gen, device=DEV)
+            with torch.no_grad():
+                got = depthwise_conv3d_fwd(x, w, stride)
+                note("depthwise_conv3d_fwd", dname, shape, stride,
+                     compare(got, depthwise_conv3d_plain(x.float(), w, stride), dtype))
+                del got
+                got = depthwise_conv3d_grad_x(g, w, stride, shape)
+                note("depthwise_conv3d_grad_x", dname, shape, stride,
+                     compare(got, depthwise_conv3d_grad_x_plain(g.float(), w, stride, shape), dtype))
+                del got
+                got = depthwise_conv3d_grad_w(x, g, stride)
+                note("depthwise_conv3d_grad_w", dname, shape, stride,
+                     compare_gw(got, depthwise_conv3d_grad_w_plain(x, g, stride)))
+            del x, g, w, got
+            torch.cuda.empty_cache()
+
+    for n, L in sorted(set(_sep_pass_shapes())) + [SEP_EDGE]:
+        word, cc = _sep_inputs(gen, n, L)
+        img, code = sep_warp_pass(word, cc, L)
+        ref_img, ref_code = sep_warp_pass_plain(word, cc, L)
+        # Codes exactly; the image (int12 units) to 1 float32 ulp: the kernel
+        # rounds each product and sum as the plain version does, and only
+        # FMA contraction could differ.
+        ulp = torch.nextafter(ref_img.abs(), torch.full_like(ref_img, math.inf)) - ref_img.abs()
+        diff = (img - ref_img).abs()
+        ok = bool(torch.equal(code, ref_code)) and bool((diff <= ulp).all())
+        note("sep_warp_pass", "float32", (n, L), 1, (ok, float(diff.max()), "codes equal, 1 ulp"))
+        del word, cc, img, code, ref_img, ref_code, ulp, diff
+    rec.setdefault("kernel_check", {}).update(worst)
+    if failures:
+        raise AssertionError(f"kernel disagrees with its plain version: {failures}")
+
+
+def _sep_pass_shapes():
+    """(rows, L) of K1's three passes over a training batch: along W, H, then D."""
+    B, D, H, W = TRAIN_BASE
+    return [(B * D * H, W), (B * D * W, H), (B * H * W, D)]
+
+
+def _sep_inputs(gen, n, L):
+    """Packed words of a random image in int12 units and random labels, and
+    coordinates that reach past both ends of the row."""
+    import torch
+
+    from deep_staple_torch.ops.sep_warp import pack_pass
+
+    img = torch.randn((n, L), generator=gen, device=DEV) * 600.0
+    code = torch.randint(0, 4, (n, L), generator=gen, device=DEV, dtype=torch.int32)
+    word = pack_pass(img, code, torch.tensor(1.0, device=DEV))
+    cc = torch.rand((n, L), generator=gen, device=DEV) * (L + 5.0) - 3.0
+    return word, cc
 
 
 def _random_variables(model, seed):
@@ -254,31 +457,34 @@ def _setup_serving(rec, seed):
 
 
 def phase_serve(rec, inputs, ckpts):
-    """The main path: serve at the CLI's defaults, counting kernel launches."""
+    """The serving path: serve at the CLI's defaults, counting kernel launches."""
     import torch
 
     from deep_staple_torch.data.nifti import load_nifti
-    from deep_staple_torch.ops.conv3d_dw import depthwise_conv3d
     from deep_staple_torch.serve import serve
 
     rec["serve"] = {}
-    total_launches = 0
     for dtype, ckpt in ckpts.items():
-        out = WORK / f"out_{dtype}"
         # A warm-up pass over the first batch: CUDA context, cuBLAS/cuDNN
         # handles and the kernel library load happen here, not in the timing.
         serve(ckpt, inputs[:4], WORK / "warmup", batch_size=4)
         torch.cuda.synchronize()
+    total = None
+    for dtype, ckpt in ckpts.items():
+        out = WORK / f"out_{dtype}"
+        torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        depthwise_conv3d.launches = 0
+        reset_counts()
         result = serve(ckpt, inputs, out, batch_size=4, eval_scale=2.0, size=(128, 128, 128))
         torch.cuda.synchronize()
-        launches = depthwise_conv3d.launches
+        counts = read_counts()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        if result.executions != 2 or launches != 10 * result.executions:
+        launches = counts["depthwise_conv3d_fwd"]
+        if result.executions != 2 or launches != 10 * result.executions or \
+                sum(counts.values()) != launches:
             raise AssertionError(
-                f"{dtype}: {launches} depthwise launches for {result.executions} forwards "
-                "(expected 10 per forward, 2 forwards)"
+                f"{dtype}: launches {counts} for {result.executions} forwards "
+                "(expected 10 forward launches per forward, 2 forwards, nothing else)"
             )
         fg = []
         for p_in, p_out in zip(inputs, result.paths):
@@ -288,7 +494,7 @@ def phase_serve(rec, inputs, ckpts):
             if not set(np.unique(seg).tolist()) <= {0, 1}:
                 raise AssertionError(f"{p_out}: labels {np.unique(seg)} not in {{0, 1}}")
             fg.append(float(seg.mean()))
-        total_launches += launches
+        total = counts if total is None else {k: total[k] + v for k, v in counts.items()}
         rec["serve"][dtype] = {
             "volumes": len(result.paths), "seconds": result.seconds,
             "volumes_per_s": len(result.paths) / result.seconds,
@@ -301,7 +507,7 @@ def phase_serve(rec, inputs, ckpts):
             f"{[round(b, 1) for b in result.batch_ms]}, peak memory {peak_gb:.2f} GB, "
             f"depthwise launches {launches} = 10 x {result.executions} forwards, "
             f"fg fraction {[round(f, 3) for f in fg]}")
-    rec["main_path_launches"] = {"depthwise_conv3d_fwd": total_launches}
+    _record_path(rec, "serve", total)
 
 
 def phase_e2e(rec, variables, small):
@@ -314,7 +520,6 @@ def phase_e2e(rec, variables, small):
     from deep_staple_torch.ops.resample import interpolate_sample
     from deep_staple_torch.train.driver import make_model
 
-    torch.set_num_threads(os.cpu_count() or 1)
     logits = {}
     for dev in ("cuda", "cpu"):
         model, _ = make_model(TrainConfig(use_checkpointing=False), 2)
@@ -341,11 +546,50 @@ def phase_e2e(rec, variables, small):
         raise AssertionError("the card disagrees with the CPU end to end")
 
 
-def phase_profile(rec, inputs, ckpts):
-    """Where a serving forward's device time goes: torch.profiler over one
-    eval step (batch 4, the serve defaults), per dtype."""
+def _profile_rows(prof):
+    """(device ms, count, name) of every CUDA kernel in a profile, busiest first."""
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        if dev_us > 0 and getattr(ev, "device_type", None) is not None and \
+                str(ev.device_type).endswith("CUDA"):
+            rows.append((dev_us / 1e3, ev.count, ev.key))
+    rows.sort(reverse=True)
+    return rows
+
+
+def _profile(tag, fn):
+    """torch.profiler over one call of fn (after a warm-up call): wall ms,
+    device busy ms and the 15 busiest kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    rows = _profile_rows(prof)
+    busy_ms = sum(r[0] for r in rows)
+    ours = {name: sum(r[0] for r in rows if name in r[2]) for name in (
+        "dw3d_fwd_kernel", "dw3d_gx2_kernel", "dw3d_gw_kernel", "dw3d_gw_reduce_kernel",
+        "sep_warp_pass_kernel")}
+    log(f"[{tag}] {wall_ms:.1f} ms wall, device busy {busy_ms:.1f} ms ({busy_ms / wall_ms:.0%}); "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in ours.items() if v))
+    for ms, count, name in rows[:15]:
+        log(f"[{tag}]   {ms:8.2f} ms  x{count:<4d} {name[:100]}")
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "kernels_ms": ours,
+            "top": [{"ms": r[0], "count": r[1], "name": r[2][:120]} for r in rows[:15]]}
+
+
+def phase_profile(rec, inputs, ckpts):
+    """Where a serving forward's device time goes: one eval step (batch 4,
+    the serve defaults), per dtype."""
+    import torch
 
     from deep_staple_torch.data.nifti import load_nifti
     from deep_staple_torch.serve import load_serving_state, preprocess
@@ -358,117 +602,376 @@ def phase_profile(rec, inputs, ckpts):
         vols = [preprocess(load_nifti(p).get_fdata(), config) for p in inputs[:4]]
         image = torch.from_numpy(np.stack(vols)).cuda()
         batch = {"image": image, "label": torch.zeros(image.shape, dtype=torch.int32, device="cuda")}
-        step(batch)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            step(batch)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t) * 1e3
-        rows = []
-        for ev in prof.key_averages():
-            dev_us = getattr(ev, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = getattr(ev, "self_cuda_time_total", 0)
-            if dev_us > 0 and getattr(ev, "device_type", None) is not None and \
-                    str(ev.device_type).endswith("CUDA"):
-                rows.append((dev_us / 1e3, ev.count, ev.key))
-        rows.sort(reverse=True)
-        busy_ms = sum(r[0] for r in rows)
-        dw_ms = sum(r[0] for r in rows if "dw3d_fwd_kernel" in r[2])
-        rec["profile"][dtype] = {
-            "wall_ms": wall_ms, "device_busy_ms": busy_ms, "dw_kernel_ms": dw_ms,
-            "top": [{"ms": r[0], "count": r[1], "name": r[2][:120]} for r in rows[:15]],
-        }
-        log(f"[profile] {dtype}: eval step {wall_ms:.1f} ms wall, device busy {busy_ms:.1f} ms "
-            f"({busy_ms / wall_ms:.0%}), depthwise kernel {dw_ms:.1f} ms")
-        for ms, count, name in rows[:15]:
-            log(f"[profile]   {ms:8.2f} ms  x{count:<4d} {name[:100]}")
+        rec["profile"][dtype] = _profile(f"profile eval {dtype}", lambda: step(batch))
         del model, step, image, batch
 
 
+# ----------------------------------------------------------------- training
+
+def synthetic_dataset(n, spatial, seed, device):
+    """n MRI-like training samples made on `device` from `seed`: a bright
+    ellipsoid on a graded background with noise, its mask as the label, and
+    a modified label that is the mask shifted by 3 voxels along H in every
+    other sample (a disturbed atlas label). Class weights and the fixed
+    weighting follow `deep_staple_tpu/train/driver.py:137-139`."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    zz, yy, xx = torch.meshgrid(
+        *[torch.linspace(-1.0, 1.0, s, device=device) for s in spatial], indexing="ij")
+    image = torch.empty((n, *spatial), device=device)
+    label = torch.empty((n, *spatial), dtype=torch.int32, device=device)
+    for i in range(n):
+        c = torch.rand(3, generator=gen, device=device) * 0.6 - 0.3
+        r = torch.rand((), generator=gen, device=device) * 0.2 + 0.2
+        blob = ((zz - c[0]) ** 2 + (yy - c[1]) ** 2 + 2 * (xx - c[2]) ** 2) < r * r
+        image[i] = 0.3 * zz + 2.0 * blob + 0.3 * torch.randn(spatial, generator=gen, device=device)
+        label[i] = blob
+    modified = label.clone()
+    modified[1::2] = torch.roll(label[1::2], 3, dims=2)
+    counts = torch.bincount(modified.reshape(-1).long(), minlength=2).double()
+    cw = 1.0 / counts.pow(0.35)
+    cw = (cw / cw.mean()).float().cpu().numpy()
+    gt_num = (modified > 0).reshape(n, -1).sum(1).double()
+    fixed = (torch.log(gt_num + math.e) + math.e).float().cpu().numpy()
+    return {"image": image, "label": label, "modified_label": modified}, cw, fixed
+
+
+def _batch(data, idx):
+    import torch
+
+    i = torch.as_tensor(idx, device=data["image"].device)
+    return {**{k: v[i] for k, v in data.items()}, "dataset_idx": i.to(torch.int32)}
+
+
+def _run_config(name, cfg, schedule, data, cw, fixed, seed, order):
+    """`schedule` [(bn phase, steps)] of full-size train steps from a fresh
+    state; batches follow `order` (indices into the 64 samples)."""
+    import torch
+
+    from deep_staple_torch.train.driver import make_model, make_warmup_model
+    from deep_staple_torch.train.state import create_state
+    from deep_staple_torch.train.step import make_train_step
+
+    model, _ = make_model(cfg, 2)
+    state = create_state(model, DATASET_LEN, seed=seed, device=DEV)
+    dp0 = state.dp_params.clone()
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    steps = []
+    for phase, n in schedule:
+        m = make_warmup_model(model, cfg, 2) if phase == "slab" else model
+        steps += [(phase, make_train_step(m, cfg, cw, fixed))] * n
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"steps": []}
+    touched = torch.zeros(DATASET_LEN, dtype=torch.bool, device=DEV)
+    for k, (phase, step) in enumerate(steps):
+        idx = order[k * 8:(k + 1) * 8]
+        before = read_counts()
+        t = time.perf_counter()
+        state, metrics = step(state, _batch(data, idx), cfg.lr, generator=gen)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        after = read_counts()
+        touched[torch.as_tensor(idx, device=DEV)] = True
+        losses = {k2: float(metrics[k2]) for k2 in ("loss", "ce_loss", "dp_loss")}
+        row = {"phase": phase, "ms": ms, **losses,
+               "launches": {k2: after[k2] - before[k2] for k2 in after}}
+        out["steps"].append(row)
+        log(f"[train] {name} step {k} ({phase}): {ms:.1f} ms, loss {losses['loss']:.5f} "
+            f"ce {losses['ce_loss']:.5f} dp {losses['dp_loss']:.5f}, launches {row['launches']}")
+        if not all(math.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"{name} step {k}: non-finite losses {losses}")
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["ms_per_step_median_after_first"] = statistics.median(r["ms"] for r in out["steps"][1:])
+    dp1 = state.dp_params
+    changed = dp1 != dp0
+    if not bool(changed[touched].all()) or bool(changed[~touched].any()):
+        raise AssertionError(
+            f"{name}: DP rows changed {changed.nonzero().flatten().tolist()}, "
+            f"touched {touched.nonzero().flatten().tolist()}")
+    out["dp_rows_touched"] = int(touched.sum())
+    log(f"[train] {name}: {out['ms_per_step_median_after_first']:.1f} ms per step (median "
+        f"after the first), peak memory {out['peak_mem_gb']:.2f} GB, {int(touched.sum())} DP "
+        f"rows touched and changed, {DATASET_LEN - int(touched.sum())} untouched and unchanged")
+    del state, model, steps
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train(rec, data, cw, fixed, seed):
+    """The training path at full size, both configurations."""
+    from deep_staple_torch.core.config import TrainConfig
+
+    order = np.random.RandomState(seed).permutation(DATASET_LEN)
+    rec["train"] = {}
+    reset_counts()
+    rec["train"]["production"] = _run_config(
+        "production", TrainConfig.tpu_production(), [("slab", 2), ("async", 3)],
+        data, cw, fixed, seed, order)
+    rec["train"]["reference"] = _run_config(
+        "reference", TrainConfig(), [("batch", 2)], data, cw, fixed, seed, order[40:])
+    _record_path(rec, "train", read_counts())
+
+
+def _warm_state(sd, cfg, device, dp0):
+    """A train state at the model weights `sd` whose AdamW moments are as
+    after 10 steps (second moments 1e-4): the next update is then smooth in
+    the gradient, not the sign-like first step, whose sign flips in
+    near-zero gradients would swamp a comparison."""
+    import torch
+
+    from deep_staple_torch.train.driver import make_model
+    from deep_staple_torch.train.optim import make_model_optimizer
+    from deep_staple_torch.train.state import DeepStapleState, make_dp_state
+
+    model, _ = make_model(cfg, 2)
+    model.aspp.dropout_rate = 0.0
+    model.load_state_dict(sd)
+    model.to(device)
+    opt = make_model_optimizer(model.parameters())
+    for p in model.parameters():
+        opt.state[p] = {"step": torch.tensor(10.0), "exp_avg": torch.zeros_like(p),
+                        "exp_avg_sq": torch.full_like(p, 1e-4)}
+    dp, dp_opt = make_dp_state(len(dp0), dp_override_values=dp0, device=device)
+    return DeepStapleState(step=0, sched_steps=0, model=model, optimizer=opt, dp_params=dp,
+                           dp_opt_state=dp_opt)
+
+
+def phase_train_e2e(rec, seed):
+    """One float32 train step on the card and on the CPU from the same state,
+    with the same augmentation draws and dropout 0, at a small size (batch 2,
+    base volume 32x32x16), in the production settings at float32 and in the
+    reference-default configuration."""
+    import torch
+
+    from deep_staple_torch.core.config import TrainConfig
+    from deep_staple_torch.models import init_weights
+    from deep_staple_torch.ops.augment import AugmentDraws, draw_augment
+    from deep_staple_torch.train.driver import make_model
+    from deep_staple_torch.train.step import make_train_step
+
+    n, spatial = 8, (32, 32, 16)
+    data, cw, fixed = synthetic_dataset(n, spatial, seed, "cpu")
+    idx = [5, 2]
+    dp0 = np.random.RandomState(seed).randn(n).astype(np.float32) * 0.1
+    draws = draw_augment(torch.Generator().manual_seed(seed), (2, *spatial))
+    numel = math.prod(int(s * 1.5) for s in spatial)
+    rec["train_e2e"] = {}
+    failures = []
+    # Float32 on both sides, TF32 off; the card sums in other orders. CE to
+    # 1e-4; DP rows as the JAX parity tests hold the port. The update norm
+    # and the DP loss depend on the configuration:
+    #  * production (async BatchNorm, fused): the update to 5e-4, as the
+    #    parity tests; the DP loss to 1e-4 plus 4 argmax flips of a
+    #    sample's voxels (its risk term counts them, 1/numel each);
+    #  * reference (batch-statistics BatchNorm, strict): the backward
+    #    through batch statistics cancels, so the update varies more with
+    #    the summation order (the port and JAX differ by 3e-4 in its norm
+    #    on the CPU at the test size): 2e-3. The strict DP loss is taken at
+    #    the updated parameters on an untrained model whose argmax sits
+    #    near the decision boundary over much of the volume, and its risk
+    #    term counts argmax voxels: 5e-2.
+    tols = {"production_f32": (5e-4, 1e-4, 4.0), "reference": (2e-3, 5e-2, 0.0)}
+    for name, cfg in (("production_f32", TrainConfig.tpu_production(compute_dtype="float32")),
+                      ("reference", TrainConfig())):
+        upd_rtol, dp_loss_rtol, flips = tols[name]
+        model, _ = make_model(cfg, 2)
+        init_weights(model, torch.Generator().manual_seed(seed))
+        sd = model.state_dict()
+        res = {}
+        for where, dev in (("card", DEV), ("cpu", "cpu")):
+            state = _warm_state(sd, cfg, dev, dp0)
+            start = {k: v.detach().double().cpu() for k, v in state.model.named_parameters()}
+            step = make_train_step(state.model, cfg, cw, fixed)
+            batch = {k: v.to(dev) for k, v in _batch(data, idx).items()}
+            state, met = step(state, batch, 0.01, draws=AugmentDraws(*(d.to(dev) for d in draws)))
+            upd = math.sqrt(sum(float(((p.detach().double().cpu() - start[k]) ** 2).sum())
+                                for k, p in state.model.named_parameters()))
+            res[where] = {"ce_loss": float(met["ce_loss"]), "dp_loss": float(met["dp_loss"]),
+                        "dp": state.dp_params.cpu().numpy(), "update_norm": upd}
+        g, c = res["card"], res["cpu"]
+        checks = {
+            "ce_loss": abs(g["ce_loss"] - c["ce_loss"]) <= 1e-4 * abs(c["ce_loss"]),
+            "dp_loss": abs(g["dp_loss"] - c["dp_loss"])
+            <= dp_loss_rtol * abs(c["dp_loss"]) + flips / numel,
+            "dp": bool(np.allclose(g["dp"], c["dp"], rtol=1e-4, atol=2e-6)),
+            "dp_untouched": bool(np.array_equal(np.delete(g["dp"], idx), np.delete(dp0, idx))),
+            "update_norm": abs(g["update_norm"] - c["update_norm"]) <= upd_rtol * c["update_norm"],
+        }
+        rec["train_e2e"][name] = {
+            "card": {k: v for k, v in g.items() if k != "dp"},
+            "cpu": {k: v for k, v in c.items() if k != "dp"},
+            "dp_max_abs": float(np.abs(g["dp"] - c["dp"]).max()), "checks": checks,
+        }
+        log(f"[train_e2e] {name}: ce {g['ce_loss']:.7f} vs {c['ce_loss']:.7f}, dp_loss "
+            f"{g['dp_loss']:.7f} vs {c['dp_loss']:.7f}, update norm {g['update_norm']:.6e} vs "
+            f"{c['update_norm']:.6e}, DP max |diff| {rec['train_e2e'][name]['dp_max_abs']:.2e}: "
+            + ", ".join(f"{k} {'ok' if v else 'FAIL'}" for k, v in checks.items()))
+        failures += [f"{name}.{k}" for k, v in checks.items() if not v]
+    if failures:
+        raise AssertionError(f"the card disagrees with the CPU on a train step: {failures}")
+
+
+def phase_train_profile(rec, data, cw, fixed, seed):
+    """Where a production train step's device time goes (batch 8, bf16)."""
+    import torch
+
+    from deep_staple_torch.core.config import TrainConfig
+    from deep_staple_torch.train.driver import make_model
+    from deep_staple_torch.train.state import create_state
+    from deep_staple_torch.train.step import make_train_step
+
+    cfg = TrainConfig.tpu_production()
+    model, _ = make_model(cfg, 2)
+    holder = {"state": create_state(model, DATASET_LEN, seed=seed, device=DEV)}
+    step = make_train_step(model, cfg, cw, fixed)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    batch = _batch(data, list(range(8)))
+
+    def one():
+        holder["state"], _ = step(holder["state"], batch, cfg.lr, generator=gen)
+
+    rec["train_profile"] = _profile("train_profile production step", one)
+    del holder, model, step
+    torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------- times
+
+def _time_row(kernel_fn, plain_fn, library_fn, nbytes, ops, reps=10):
+    k_ms = timed_ms(kernel_fn, reps=reps)
+    p_ms = timed_ms(plain_fn, reps=3, warmup=1)
+    l_ms = timed_ms(library_fn, reps=reps) if library_fn is not None else None
+    b_ms, by = bound(nbytes, ops)
+    return {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms, "bound_by": by,
+            "bytes": nbytes, "ops": ops}
+
+
 def phase_times(rec, seed):
-    """Device time of the kernel at each serving shape (batch 4), beside its
-    bound, the plain version and F.conv3d(groups=C) (cuDNN, timed here only)."""
+    """Device time of each kernel at the main paths' shapes, beside its bound,
+    its plain version and the one PyTorch call that computes the same
+    function (timed here only): F.conv3d(groups=C) for the forward,
+    aten.convolution_backward(groups=C) with the input or the weight
+    gradient selected for the backward. K1 has no such call."""
     import torch
     import torch.nn.functional as F
 
-    from deep_staple_torch.ops.conv3d_dw import (
-        depthwise_conv3d,
-        depthwise_conv3d_plain,
-        out_extent,
-    )
+    from deep_staple_torch.ops import conv3d_dw as dw
+    from deep_staple_torch.ops.sep_warp import sep_warp_pass, sep_warp_pass_plain
 
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    rows = {}
-    saved = depthwise_conv3d.launches
-    for dtype in (torch.float32, torch.bfloat16):
-        dname = str(dtype).split(".")[-1]
-        rows[dname] = []
-        for shape, stride in SERVING_DW:
-            B, D, H, W, C = shape
-            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-            w = torch.randn(27, C, generator=gen, device="cuda")
-            wl = w.t().reshape(C, 1, 3, 3, 3).to(dtype)
-            xl = x.permute(0, 4, 1, 2, 3)  # NCDHW view, channels_last_3d memory
-            out_n = B * C * math.prod(out_extent(n, stride) for n in (D, H, W))
-            nbytes = (x.numel() + out_n) * x.element_size() + w.numel() * 4
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = 54 * out_n / F32_FLOP_PER_S * 1e3
-            with torch.inference_mode():
-                lib = F.conv3d(xl, wl, None, stride, 1, 1, C)
-                ker = depthwise_conv3d(x, w, stride)
-                torch.cuda.synchronize()
-                lib_err = float((lib.permute(0, 2, 3, 4, 1).float() - ker.float()).abs().max())
-                del lib, ker
-                k_ms = timed_ms(lambda: depthwise_conv3d(x, w, stride), reps=10)
-                p_ms = timed_ms(lambda: depthwise_conv3d_plain(x, w, stride), reps=3, warmup=1)
-                l_ms = timed_ms(lambda: F.conv3d(xl, wl, None, stride, 1, 1, C), reps=10)
-            row = {
-                "shape": list(shape), "stride": stride, "ms": k_ms, "plain_ms": p_ms,
-                "library_ms": l_ms, "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "bytes": nbytes, "lib_vs_kernel_max_abs": lib_err,
-            }
-            rows[dname].append(row)
-            log(f"[times] {dname:8s} {str(tuple(shape)):22s} s{stride} kernel {k_ms:8.3f} ms "
-                f"bound {row['bound_ms']:7.3f} ms ({row['bound_by']}) "
-                f"plain {p_ms:8.3f} ms  F.conv3d {l_ms:8.3f} ms  |lib-kernel| {lib_err:.1e}")
-            del x, w, wl, xl
-            torch.cuda.empty_cache()
-    depthwise_conv3d.launches = saved
-    rec["times"] = rows
+    gen = torch.Generator(device=DEV).manual_seed(seed + 2)
+    saved = read_counts()
+    times = {name: {} for name in KERNELS}
+    for path, shapes in (("serve", SERVING_DW), ("train", TRAIN_DW)):
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            for shape, stride in shapes:
+                B, D, H, W, C = shape
+                oshape = (B, dw.out_extent(D, stride), dw.out_extent(H, stride),
+                          dw.out_extent(W, stride), C)
+                x = torch.randn(shape, generator=gen, device=DEV).to(dtype)
+                g = torch.randn(oshape, generator=gen, device=DEV).to(dtype)
+                w = torch.randn(27, C, generator=gen, device=DEV)
+                wl = w.t().reshape(C, 1, 3, 3, 3).to(dtype)
+                xl, gl = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)  # NCDHW views
+                es = x.element_size()
+                io = (x.numel() + g.numel()) * es + w.numel() * 4
+                ops = dw_ops(shape, stride)
+
+                def lib_bwd(mask):
+                    return lambda: torch.ops.aten.convolution_backward(
+                        gl, xl, wl, None, [stride] * 3, [1] * 3, [1] * 3, False, [0] * 3, C, mask)
+
+                entries = [("depthwise_conv3d_fwd", (
+                    lambda: dw.depthwise_conv3d_fwd(x, w, stride),
+                    lambda: dw.depthwise_conv3d_plain(x, w, stride),
+                    lambda: F.conv3d(xl, wl, None, stride, 1, 1, C)))]
+                if path == "train":
+                    entries += [
+                        ("depthwise_conv3d_grad_x", (
+                            lambda: dw.depthwise_conv3d_grad_x(g, w, stride, shape),
+                            lambda: dw.depthwise_conv3d_grad_x_plain(g, w, stride, shape),
+                            lib_bwd([True, False, False]))),
+                        ("depthwise_conv3d_grad_w", (
+                            lambda: dw.depthwise_conv3d_grad_w(x, g, stride),
+                            lambda: dw.depthwise_conv3d_grad_w_plain(x, g, stride),
+                            lib_bwd([False, True, False]))),
+                    ]
+                with torch.no_grad():
+                    for name, (kfn, pfn, lfn) in entries:
+                        row = {"shape": list(shape), "stride": stride,
+                               **_time_row(kfn, pfn, lfn, io, ops)}
+                        times[name].setdefault(path, {}).setdefault(dname, []).append(row)
+                        log(f"[times] {name:24s} {dname:8s} {str(tuple(shape)):22s} s{stride} "
+                            f"kernel {row['ms']:8.3f} ms bound {row['bound_ms']:7.3f} ms "
+                            f"({row['bound_by']}) plain {row['plain_ms']:8.3f} ms "
+                            f"library {row['library_ms']:8.3f} ms")
+                del x, g, w, wl, xl, gl, entries
+                torch.cuda.empty_cache()
+    for n, L in _sep_pass_shapes():
+        word, cc = _sep_inputs(gen, n, L)
+        row = {"shape": [n, L], **_time_row(lambda: sep_warp_pass(word, cc, L),
+                                            lambda: sep_warp_pass_plain(word, cc, L), None,
+                                            16 * n * L, SEP_OPS_PER_ELEM * n * L)}
+        times["sep_warp_pass"].setdefault("train", {}).setdefault("float32", []).append(row)
+        log(f"[times] {'sep_warp_pass':24s} {'float32':8s} {str((n, L)):22s}    "
+            f"kernel {row['ms']:8.3f} ms bound {row['bound_ms']:7.3f} ms ({row['bound_by']}) "
+            f"plain {row['plain_ms']:8.3f} ms library none")
+        del word, cc
+    for name, fn in _wrappers().items():
+        fn.launches = saved[name]
+    rec["times"] = times
     rec["peaks"] = {"hbm_bytes_per_s": HBM_BYTES_PER_S, "f32_flop_per_s": F32_FLOP_PER_S}
 
 
-def summary_line(rec):
-    """The {"kernels": [...]} record: per-forward sums over the ten serving
-    shapes, float32 (bfloat16 alongside)."""
-    def totals(rows):
-        return {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+def _sums(rows):
+    out = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms")}
+    lib = [r["library_ms"] for r in rows]
+    out["library_ms"] = None if None in lib else sum(lib)
+    out["bound_by"] = "bytes" if all(r["bound_by"] == "bytes" for r in rows) else "operations"
+    return out
 
+
+def summary_line(rec):
+    """The {"kernels": [...]} record. The forward's numbers are sums over the
+    ten calls of one serving forward (batch 4, as since it was ported), with
+    one training forward beside them; the backward kernels' are sums over
+    one training step's ten calls (batch 8), K1's over its three passes.
+    float32 at the top level, bfloat16 alongside."""
     times = rec.get("times", {})
-    f32 = totals(times["float32"]) if times else {}
-    entry = {
-        "name": "depthwise_conv3d_fwd",
-        "route": "cuda",
-        "source": "deep_staple_torch/csrc/depthwise_conv3d.cu",
-        "replaces": "deep_staple_tpu/ops/conv3d_pallas.py:90",
-        "launches": rec.get("main_path_launches", {}).get("depthwise_conv3d_fwd", 0),
-        "max_abs_err": rec.get("kernel_check", {}).get("float32", {}).get("max_abs"),
-        "ms": f32.get("ms"),
-        "plain_ms": f32.get("plain_ms"),
-        "bound_ms": f32.get("bound_ms"),
-        "bound_by": "bytes",
-        "library_ms": f32.get("library_ms"),
-        "basis": "sum over the 10 depthwise calls of one serving forward, batch 4, float32",
-    }
-    if times:
-        bf = totals(times["bfloat16"])
-        entry["bfloat16"] = {**bf, "max_abs_err": rec["kernel_check"]["bfloat16"]["max_abs"]}
-        if any(r["bound_by"] != "bytes" for r in times["float32"]):
-            entry["bound_by"] = "operations"
-    return {"kernels": [entry]}
+    checks = rec.get("kernel_check", {})
+    paths = rec.get("main_path_launches", {})
+    entries = []
+    for name, (source, replaces) in KERNELS.items():
+        head_path = "serve" if name == "depthwise_conv3d_fwd" else "train"
+        rows = times.get(name, {})
+        main = _sums(rows[head_path]["float32"]) if head_path in rows else {}
+        errs = [v.get("float32", 0.0) for k, v in checks.items() if k.startswith(name + ".")]
+        entry = {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(c.get(name, 0) for c in paths.values()),
+            "launches_by_path": {p: c.get(name, 0) for p, c in paths.items()},
+            "max_abs_err": max(errs) if errs else None,
+            "ms": main.get("ms"), "plain_ms": main.get("plain_ms"),
+            "bound_ms": main.get("bound_ms"), "bound_by": main.get("bound_by", "bytes"),
+            "library_ms": main.get("library_ms"),
+            "basis": {
+                "depthwise_conv3d_fwd": "sum over the 10 calls of one serving forward, batch 4",
+                "sep_warp_pass": "sum over the 3 passes of one training batch, batch 8",
+            }.get(name, "sum over the 10 calls of one training step, batch 8") + ", float32",
+        }
+        if name == "sep_warp_pass":
+            entry["library_note"] = ("no single PyTorch call computes one pass's in-row "
+                                     "gather, int12 lerp and 2-bit code")
+        if "bfloat16" in rows.get(head_path, {}):
+            bf_errs = [v.get("bfloat16", 0.0) for k, v in checks.items() if k.startswith(name + ".")]
+            entry["bfloat16"] = {**_sums(rows[head_path]["bfloat16"]),
+                                 "max_abs_err": max(bf_errs) if bf_errs else None}
+        if name == "depthwise_conv3d_fwd" and "train" in rows:
+            entry["train_forward"] = {d: _sums(r) for d, r in rows["train"].items()}
+        entries.append(entry)
+    return {"kernels": entries}
 
 
 def main(argv=None):
@@ -479,6 +982,9 @@ def main(argv=None):
     ap.add_argument("--json-out", default=None, help="write every measurement to this file")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
+    unknown = set(phases) - set(PHASES)
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
 
     import torch
 
@@ -488,6 +994,7 @@ def main(argv=None):
     from deep_staple_torch.core.device import resolve_device
 
     resolve_device()  # float32 precision: TF32 off in cuDNN and matmuls
+    torch.set_num_threads(os.cpu_count() or 1)
     rec = {"seed": args.seed, "phases": phases}
     t0 = time.perf_counter()
     phase_device(rec)
@@ -495,6 +1002,8 @@ def main(argv=None):
         phase_build(rec)
     if "kernels" in phases:
         phase_kernels(rec, args.seed)
+    if "train_kernels" in phases:
+        phase_train_kernels(rec, args.seed)
     if {"serve", "e2e", "profile"} & set(phases):
         inputs, variables, small, ckpts = _setup_serving(rec, args.seed)
         if "serve" in phases:
@@ -504,13 +1013,23 @@ def main(argv=None):
         if "profile" in phases:
             phase_profile(rec, inputs, ckpts)
         shutil.rmtree(WORK, ignore_errors=True)
+    if {"train", "train_profile"} & set(phases):
+        data, cw, fixed = synthetic_dataset(DATASET_LEN, TRAIN_BASE[1:], args.seed, DEV)
+        if "train" in phases:
+            phase_train(rec, data, cw, fixed, args.seed)
+        if "train_profile" in phases:
+            phase_train_profile(rec, data, cw, fixed, args.seed)
+        del data
+        torch.cuda.empty_cache()
+    if "train_e2e" in phases:
+        phase_train_e2e(rec, args.seed)
     if "times" in phases:
         phase_times(rec, args.seed)
     rec["seconds"] = time.perf_counter() - t0
     log(f"[done] {rec['seconds']:.1f} s")
     if args.json_out:
         Path(args.json_out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.json_out).write_text(json.dumps(rec, indent=1))
+        Path(args.json_out).write_text(json.dumps(rec, indent=1, default=str))
     print(rec["nvidia_smi"])
     print(json.dumps(summary_line(rec)))
     print(json.dumps({"ok": True, "device": {

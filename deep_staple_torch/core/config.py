@@ -121,6 +121,23 @@ class TrainConfig:
     def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)
 
+    @classmethod
+    def tpu_production(cls, **kw) -> "TrainConfig":
+        """The JAX package's production configuration
+        (`deep_staple_tpu/core/config.py:247-305`), under the same name: fused
+        out-of-line DP pass, 'fast-sep' augmentation, bfloat16, no remat,
+        async BatchNorm after `bn_warmup_epochs` of slab BatchNorm. The
+        dataclass defaults are the reference configuration."""
+        base = dict(
+            ool_mode="fused",
+            augment_order="fast-sep",
+            compute_dtype="bfloat16",
+            use_checkpointing=False,
+            bn_mode="async",
+        )
+        base.update(kw)
+        return cls(**base)
+
     def to_dict(self) -> dict:
         d = dataclasses.asdict(self)
         for k, v in d.items():

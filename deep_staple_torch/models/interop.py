@@ -15,6 +15,11 @@ state_dict key is the Flax variable path joined by dots, e.g.
 
 Values on the Flax side are numpy arrays in nested dicts
 (`{"params": ..., "batch_stats": ...}`). Pure numpy and torch; no JAX.
+
+`state_from_jax` carries a whole JAX train state across (`DeepStapleState`
+of `deep_staple_tpu/train/state.py` with numpy leaves): the variables, the
+optax AdamW moments and count, the DP vector with its SparseAdam state, and
+the step counters, so that a port step can start from any JAX step.
 """
 
 from __future__ import annotations
@@ -92,3 +97,56 @@ def load_flax_variables(model: torch.nn.Module, variables: dict) -> torch.nn.Mod
     """Load Flax variables into `model` (strict: every key on both sides)."""
     model.load_state_dict(flax_to_state_dict(variables), strict=True)
     return model
+
+
+def _find_adam_state(node):
+    """The optax ScaleByAdamState (fields count, mu, nu) inside an optax
+    optimizer state (inject_hyperparams' inner_state, chain tuples)."""
+    if all(hasattr(node, k) for k in ("count", "mu", "nu")):
+        return node
+    children = node.inner_state if hasattr(node, "inner_state") else node
+    if isinstance(children, (tuple, list)):
+        for child in children:
+            found = _find_adam_state(child)
+            if found is not None:
+                return found
+    return None
+
+
+def state_from_jax(jax_state, model: torch.nn.Module, weight_decay: float = 0.01, device=None):
+    """A JAX `DeepStapleState` with numpy leaves -> the port's
+    `train.state.DeepStapleState`, with `model` loaded and moved to `device`
+    (CUDA unless "cpu" is asked for) and its AdamW state set from optax's."""
+    from ..core.device import resolve_device
+    from ..train.optim import SparseAdamState, make_model_optimizer
+    from ..train.state import DeepStapleState
+
+    dev = resolve_device(device)
+    load_flax_variables(model, {"params": jax_state.params, "batch_stats": jax_state.batch_stats})
+    model.to(dev)
+    optimizer = make_model_optimizer(model.parameters(), weight_decay)
+    adam = _find_adam_state(jax_state.opt_state)
+    if adam is None:
+        raise ValueError("no optax Adam state (count, mu, nu) in the JAX optimizer state")
+    mu = flax_to_state_dict({"params": adam.mu})
+    nu = flax_to_state_dict({"params": adam.nu})
+    count = float(np.asarray(adam.count))
+    for name, p in model.named_parameters():
+        optimizer.state[p] = {
+            "step": torch.tensor(count, dtype=torch.float32),
+            "exp_avg": mu[name].to(dev),
+            "exp_avg_sq": nu[name].to(dev),
+        }
+    dp = dp_opt = None
+    if jax_state.dp_params is not None:
+        dp = torch.from_numpy(np.array(jax_state.dp_params, np.float32)).to(dev)
+        o = jax_state.dp_opt_state
+        dp_opt = SparseAdamState(
+            mu=torch.from_numpy(np.array(o.mu, np.float32)).to(dev),
+            nu=torch.from_numpy(np.array(o.nu, np.float32)).to(dev),
+            count=torch.tensor(int(np.asarray(o.count)), dtype=torch.int32, device=dev),
+        )
+    return DeepStapleState(
+        step=int(np.asarray(jax_state.step)), sched_steps=int(np.asarray(jax_state.sched_steps)),
+        model=model, optimizer=optimizer, dp_params=dp, dp_opt_state=dp_opt,
+    )

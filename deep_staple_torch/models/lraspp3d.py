@@ -1,4 +1,4 @@
-"""MobileNetV3-style 3D LR-ASPP segmentation network, eval forward.
+"""MobileNetV3-style 3D LR-ASPP segmentation network, eval and train forward.
 
 The counterpart of `deep_staple_tpu/models/lraspp3d.py`: the same modules,
 submodule names and parameter names as the Flax model, so a state_dict key is
@@ -19,10 +19,19 @@ NDHWC-contiguous tensors:
 The compute dtype (float32 or bfloat16) applies to activations and to the
 weights as the convs see them; parameters stay float32, as in Flax. The
 final trilinear upsample runs in float32 (`lraspp3d.py:460-473`).
+
+Train mode (`forward(x, train=True, generator=g)`): BatchNorm in its
+`bn_mode` (`models/norm.py`), ASPP dropout drawn from the explicit
+`torch.Generator` g, and, with `use_checkpointing`, activation remat of the
+four segments him, lom, aspp and head (`lraspp3d.py:453-458`) through
+`models/remat.py`, so that a recomputation neither updates BatchNorm
+statistics again nor draws a new dropout mask. `init_weights` draws
+parameters from the Flax initializers' distributions (`lraspp3d.py:54-65`).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -31,6 +40,7 @@ from torch import nn
 
 from ..ops.conv3d_dw import depthwise_conv3d
 from ..ops.resample import resize_nd
+from . import remat
 from .norm import BatchNorm
 
 # Backbone channel spec (reference `MobileNet_LR_ASPP_3D.py:171-174`, in_num=1).
@@ -96,6 +106,25 @@ class DepthwiseConv3D(nn.Module):
         return depthwise_conv3d(x, w, self.stride)
 
 
+class _ReLU6(torch.autograd.Function):
+    """min(max(x, 0), 6) in place, keeping the result for the backward: the
+    gradient passes where 0 < y < 6, which is where 0 < x < 6. In-place
+    `clamp_` would keep a copy of its input instead, one more activation-sized
+    tensor per layer; the result is kept by the next conv anyway."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = x.clamp_(0, 6)
+        ctx.mark_dirty(y)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return torch.where((y > 0) & (y < 6), g, 0.0)
+
+
 class ConvBN(nn.Module):
     """Conv3d (no bias) + BatchNorm + optional activation ('relu' | 'relu6')."""
 
@@ -117,9 +146,9 @@ class ConvBN(nn.Module):
     def forward(self, x, train: bool = False):
         x = self.BatchNorm_0(self.Conv_0(x), train)
         if self.act == "relu":
-            x = x.clamp_(min=0)
+            x = torch.relu_(x)  # its backward reads the result, not a copy of x
         elif self.act == "relu6":
-            x = x.clamp_(0, 6)
+            x = _ReLU6.apply(x) if torch.is_grad_enabled() and x.requires_grad else x.clamp_(0, 6)
         return x
 
 
@@ -197,14 +226,24 @@ class ASPP3D(nn.Module):
         self.add_module(f"ConvBN_{n + 1}", ConvBN(in_features, out_channels, kernel=1, **kw))
         self.add_module(f"ConvBN_{n + 2}", ConvBN((n + 2) * out_channels, out_channels, kernel=1, **kw))
 
-    def forward(self, x, train: bool = False):
+    def forward(self, x, train: bool = False, generator: Optional[torch.Generator] = None):
         n = self.n_rates
         branches = [getattr(self, f"ConvBN_{j}")(x, train) for j in range(n + 1)]
         pooled = x.mean(dim=(1, 2, 3), keepdim=True)
         pooled = getattr(self, f"ConvBN_{n + 1}")(pooled, train)
         branches.append(pooled.expand(*x.shape[:-1], pooled.shape[-1]))
         y = getattr(self, f"ConvBN_{n + 2}")(torch.cat(branches, dim=-1), train)
-        return F.dropout(y, self.dropout_rate, training=train)
+        if not train or self.dropout_rate == 0.0:
+            return y
+        if generator is None:
+            raise ValueError("train-mode dropout needs a torch.Generator")
+        # Flax nn.Dropout: keep with probability 1 - rate, scale by 1/(1 - rate).
+        state = remat.keep(generator.get_state)
+        if remat.replaying():
+            generator = torch.Generator(device=generator.device)
+            generator.set_state(state)
+        keep = torch.rand(y.shape, generator=generator, device=y.device) >= self.dropout_rate
+        return torch.where(keep, y / (1.0 - self.dropout_rate), 0.0)
 
 
 class LRASPPHead3D(nn.Module):
@@ -258,8 +297,8 @@ class MobileNetLRASPP3D(nn.Module):
             stay float32.
         bn_mode: 'batch' | 'async' | 'slab' (eval is the same in all three).
 
-    Parameters start at zero (BatchNorms at identity): load a checkpoint.
-    Random init comes with the training slice.
+    Parameters start at zero (BatchNorms at identity): load a checkpoint or
+    call `init_weights`.
     """
 
     head_type = "lraspp"
@@ -271,6 +310,7 @@ class MobileNetLRASPP3D(nn.Module):
         self.num_classes = num_classes
         self.use_checkpointing = use_checkpointing
         self.dtype = dtype
+        self.bn_mode = bn_mode
         kw = dict(dtype=dtype, bn_mode=bn_mode)
         self.him = BackboneHigh3D(in_channels, **kw)
         self.lom = BackboneLow3D(**kw)
@@ -278,13 +318,20 @@ class MobileNetLRASPP3D(nn.Module):
         head_cls = LRASPPHead3D if self.head_type == "lraspp" else ConvHead3D
         self.head = head_cls(num_classes, 128, OUT_CHANNELS[1], **kw)
 
-    def forward(self, x, train: bool = False):
+    def forward(self, x, train: bool = False, generator: Optional[torch.Generator] = None):
+        """x (B, D, H, W, C_in) -> {"out": float32 logits}; `generator` feeds
+        the ASPP dropout in train mode."""
         in_spatial = tuple(x.shape[1:4])
         x = x.to(self.dtype or x.dtype).contiguous()
-        high = self.him(x, train)
-        low = self.lom(high, train)
-        low = self.aspp(low, train)
-        y = self.head(low, high, train)
+        if train and self.use_checkpointing and torch.is_grad_enabled():
+            seg = remat.checkpoint
+        else:
+            def seg(fn, *args):
+                return fn(*args)
+        high = seg(self.him, x, train)
+        low = seg(self.lom, high, train)
+        low = seg(self.aspp, low, train, generator)
+        y = seg(self.head, low, high, train)
         # Final trilinear upsample to the input size, in float32 (reference :232).
         y = _to_ndhwc(resize_nd(_to_ncdhw(y.float()), in_spatial, mode="linear",
                                 align_corners=False))
@@ -299,3 +346,46 @@ class MobileNetASPP3D(MobileNetLRASPP3D):
 
 def count_params(model: nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
+
+
+def _truncated_normal_(w, std: float, gen):
+    """Flax's 'normal' variance scaling: N(0, 1) cut at +-2, redrawn outside
+    the cut, scaled so that the cut distribution has standard deviation std."""
+    with torch.no_grad():
+        t = torch.empty(w.shape, device=w.device).normal_(generator=gen)
+        bad = t.abs() > 2.0
+        while bad.any():
+            t[bad] = torch.empty(int(bad.sum()), device=w.device).normal_(generator=gen)
+            bad = t.abs() > 2.0
+        w.copy_(t * (std / 0.87962566103423978))  # std of N(0, 1) cut at +-2
+
+
+def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Random parameters with the Flax initializers' distributions
+    (`lraspp3d.py:54-65`): the backbone's convs (him, lom; depthwise
+    included) variance-scaling 2.0 fan_out normal; the ASPP's and head's
+    convs torch's default U(+-1/sqrt(fan_in)), their biases likewise;
+    BatchNorm scale 1 and bias 0, running statistics (0, 1), count 0. The
+    numbers differ from Flax's for the same seed."""
+    for name, mod in model.named_modules():
+        if isinstance(mod, BatchNorm):
+            with torch.no_grad():
+                mod.scale.fill_(1.0)
+                mod.bias.zero_()
+                mod.mean.zero_()
+                mod.var.fill_(1.0)
+                if hasattr(mod, "count"):
+                    mod.count.zero_()
+        elif isinstance(mod, DepthwiseConv3D):  # Flax (3, 3, 3, 1, C): fan_out 27 C
+            _truncated_normal_(mod.kernel, math.sqrt(2.0 / mod.kernel.numel()), generator)
+        elif isinstance(mod, Conv3d):  # (O, I, k, k, k)
+            if name.startswith(("him.", "lom.")):
+                fan_out = mod.kernel.shape[0] * math.prod(mod.kernel.shape[2:])
+                _truncated_normal_(mod.kernel, math.sqrt(2.0 / fan_out), generator)
+                continue
+            bound = 1.0 / math.sqrt(math.prod(mod.kernel.shape[1:]))
+            with torch.no_grad():
+                mod.kernel.uniform_(-bound, bound, generator=generator)
+                if mod.bias is not None:
+                    mod.bias.uniform_(-bound, bound, generator=generator)
+    return model

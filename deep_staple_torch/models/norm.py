@@ -1,17 +1,32 @@
-"""BatchNorm with the Flax parameter and statistic names.
+"""BatchNorm with the Flax parameter and statistic names, in its three modes.
 
-The counterpart of Flax `nn.BatchNorm` and of `AsyncBatchNorm` /
-`SlabBatchNorm` (`deep_staple_tpu/models/norm.py`): parameters `scale` and
-`bias`, running statistics `mean` and `var` as buffers, and for the 'async'
-and 'slab' modes the `count` buffer (int32 scalar) that seeds their first
-statistics update. Eval is the same in every mode
+The counterpart of Flax `nn.BatchNorm` ('batch') and of `AsyncBatchNorm` /
+`SlabBatchNorm` (`deep_staple_tpu/models/norm.py:49-190`): parameters
+`scale` and `bias`, running statistics `mean` and `var` as buffers, and for
+the 'async' and 'slab' modes the `count` buffer (int32 scalar) that seeds
+their first statistics update. Eval is the same in every mode
 (`deep_staple_tpu/models/norm.py:28`, `:71-78`):
 
     y = (x - mean) * rsqrt(var + eps) * scale + bias
 
 computed in float32 as x * mul + (bias - mean * mul), one pass, and cast
-to the input dtype. The train-mode statistics update comes with the
-training slice.
+to the input dtype. Train mode, per `bn_mode`:
+
+  * 'batch': normalize through this batch's statistics, with their
+    gradient, as Flax does; var = max(0, E[x^2] - E[x]^2), biased. The
+    normalization is the same one-pass x * mul + (bias - mean * mul) as in
+    eval, so that autograd keeps x alone and not also x - mean.
+  * 'async': normalize through the running statistics as they were before
+    this call (no gradient), then update them from the batch; the first
+    update (count == 0) seeds them with the batch's statistics.
+  * 'slab': normalize through statistics of a D-stride-4 subsample of this
+    batch (the whole batch when D < 4), without their gradient, then update
+    the running statistics from them, seeded like 'async'.
+
+Statistics are float32 means of x and x^2 over every axis but the last,
+var = E[x^2] - E[x]^2, momentum 0.9. The running statistics are updated in
+place, once per forward: a checkpointed recomputation (`models/remat.py`)
+makes no update and normalizes as the first run did.
 """
 
 from __future__ import annotations
@@ -19,11 +34,22 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from . import remat
+
+SLAB_STRIDE = 4
+
+
+def _moments(x):
+    """float32 E[x] and E[x^2] over every axis but the last."""
+    xf = x.float()
+    axes = tuple(range(x.dim() - 1))
+    return xf.mean(axes), (xf * xf).mean(axes)
+
 
 class BatchNorm(nn.Module):
     """Channels-last BatchNorm over the last axis; `bn_mode` in
-    ('batch', 'async', 'slab') decides only whether `count` exists and, in a
-    later slice, the train-mode statistics."""
+    ('batch', 'async', 'slab') decides whether `count` exists and the
+    train-mode statistics."""
 
     def __init__(self, num_features: int, bn_mode: str = "batch", momentum: float = 0.9,
                  epsilon: float = 1e-5):
@@ -40,12 +66,43 @@ class BatchNorm(nn.Module):
         if bn_mode in ("async", "slab"):
             self.register_buffer("count", torch.zeros((), dtype=torch.int32))
 
-    def forward(self, x, train: bool = False):
-        if train:
-            raise NotImplementedError(
-                "train-mode BatchNorm statistics come with the training slice"
-            )
-        mul = torch.rsqrt(self.var + self.epsilon) * self.scale
-        add = self.bias - self.mean * mul
+    def _affine(self, x, mean, var):
+        mul = torch.rsqrt(var + self.epsilon) * self.scale
+        add = self.bias - mean * mul
         # addcmul promotes a bfloat16 x to float32: one float32 pass, then cast.
         return torch.addcmul(add, x, mul).to(x.dtype)
+
+    @torch.no_grad()
+    def _update(self, mean, var, seeded: bool):
+        if remat.replaying():
+            return
+        m = self.momentum
+        if seeded:
+            m = torch.where(self.count == 0, 0.0, m)
+            self.count.add_(1)
+        self.mean.copy_(m * self.mean + (1.0 - m) * mean)
+        self.var.copy_(m * self.var + (1.0 - m) * var)
+
+    def forward(self, x, train: bool = False):
+        if not train:
+            return self._affine(x, self.mean, self.var)
+        if self.bn_mode == "batch":
+            mean, mean2 = _moments(x)
+            var = torch.clamp(mean2 - mean * mean, min=0.0)
+            self._update(mean.detach(), var.detach(), seeded=False)
+            return self._affine(x, mean, var)
+        if self.bn_mode == "async":
+            # The statistics as they were before this call, kept for a
+            # recomputation (the update below changes the buffers in place).
+            mean, var = remat.keep(lambda: (self.mean.clone(), self.var.clone()))
+            y = self._affine(x, mean, var)
+            with torch.no_grad():
+                b_mean, b_mean2 = _moments(x)
+            self._update(b_mean, b_mean2 - b_mean * b_mean, seeded=True)
+            return y
+        xs = x[:, ::SLAB_STRIDE] if x.dim() == 5 and x.shape[1] >= SLAB_STRIDE else x
+        with torch.no_grad():
+            mean, mean2 = _moments(xs)
+            var = mean2 - mean * mean
+        self._update(mean, var, seeded=True)
+        return self._affine(x, mean, var)

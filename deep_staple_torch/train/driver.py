@@ -1,5 +1,6 @@
-"""Training driver. This slice ports `make_model` only
-(`deep_staple_tpu/train/driver.py:75-99`); `train_dl` comes later."""
+"""Training driver: the models (`deep_staple_tpu/train/driver.py:75-99`) and
+the slab-warmup model of the async-BatchNorm schedule (`:393-418`).
+`train_dl` comes with slice 4 of the port."""
 
 from __future__ import annotations
 
@@ -23,3 +24,16 @@ def make_model(config: TrainConfig, num_classes: int):
         in_channels=in_ch,
     )
     return model, in_ch
+
+
+def make_warmup_model(model, config: TrainConfig, num_classes: int):
+    """The model of the first `bn_warmup_epochs` under async BatchNorm: the
+    same network with slab BatchNorm, sharing every parameter and buffer
+    (`count` included) with `model`, so that one optimizer and one set of
+    running statistics serve both phases (`driver.py:393-418`)."""
+    warm, _ = make_model(config.replace(bn_mode="slab"), num_classes)
+    mods = dict(model.named_modules())
+    for name, mod in warm.named_modules():
+        mod._parameters = mods[name]._parameters
+        mod._buffers = mods[name]._buffers
+    return warm

@@ -1,0 +1,59 @@
+"""Loss functions of the DeepSTAPLE training objective
+(`deep_staple_tpu/train/losses.py:22-80`).
+
+  * class-weighted CE with torch `CrossEntropyLoss(weight)` weighted-mean
+    reduction (`main_deep_staple.py:716`),
+  * per-sample voxel-mean CE for the DP loss (:738-739),
+  * data-parameter weighting: sigmoid, batch-mean normalization (:741-744),
+    optional fixed-weighting divide (:747-748),
+  * risk regularization -w * |pred > 0| / numel (:750-757).
+
+Logits are channels-last (B, *spatial, C) float32.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+def _nll(logits, targets):
+    logp = F.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, -1, targets.long().unsqueeze(-1)).squeeze(-1)
+
+
+def weighted_cross_entropy(logits, targets, class_weights):
+    """sum(w[t] * nll) / sum(w[t]), as nn.CrossEntropyLoss(weight=w)."""
+    w = class_weights[targets.long()]
+    return (_nll(logits, targets) * w).sum() / w.sum()
+
+
+def per_sample_cross_entropy(logits, targets):
+    """Unweighted CE, voxel mean per batch sample -> (B,)."""
+    nll = _nll(logits, targets)
+    return nll.reshape(nll.shape[0], -1).mean(dim=-1)
+
+
+def dp_weights_from_params(bare_params_batch, fixed_weighting_batch=None):
+    """sigmoid -> batch-mean normalize -> optional fixed-weighting divide."""
+    w = torch.sigmoid(bare_params_batch)
+    w = w / w.mean()
+    if fixed_weighting_batch is not None:
+        w = w / fixed_weighting_batch
+    return w
+
+
+def dp_loss_fn(dp_logits, targets, bare_params_batch, fixed_weighting_batch=None,
+               use_risk_regularization: bool = True):
+    """The full data-parameter loss, sum-reduced (reference :738-759)."""
+    ce = per_sample_cross_entropy(dp_logits, targets)
+    w = dp_weights_from_params(bare_params_batch, fixed_weighting_batch)
+    loss = (ce * w).sum()
+    if use_risk_regularization:
+        pred = dp_logits.detach().argmax(dim=-1)
+        p_pred_num = (pred > 0).reshape(pred.shape[0], -1).sum(dim=-1).float()
+        numel = float(math.prod(pred.shape[1:]))
+        loss = loss + (-w * p_pred_num / numel).sum()
+    return loss

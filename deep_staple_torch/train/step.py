@@ -1,13 +1,170 @@
-"""Eval step (`deep_staple_tpu/train/step.py:251-285`); the train step comes
-with the training slice."""
+"""The train step and the eval step (`deep_staple_tpu/train/step.py`).
+
+One `train_step` call does what the reference does per batch
+(`main_deep_staple.py:673-795`), in the JAX step's order (`step.py:144-239`):
+
+  1. augmentation on the device (`ops/augment.py`; draws from the step's
+     generator unless the caller passes them),
+  2. forward, class-weighted CE and an AdamW update of the model,
+  3. the data-parameter (DP) pass:
+       - 'strict' out-of-line: a second train-mode forward with the updated
+         parameters (BatchNorm statistics advance twice, except with async
+         BatchNorm, whose second forward normalizes through the statistics
+         of the step's start and whose update is dropped, `step.py:194-207`),
+       - 'fused' out-of-line: the CE pass's logits, detached,
+       - not out-of-line: the DP loss backpropagates into the model too,
+  4. SparseAdam on the DP rows of the batch (duplicates accumulate),
+  5. the train Dice of the argmax against the clean augmented label.
+"""
 
 from __future__ import annotations
 
 import torch
 
-from ..core.config import TrainConfig
+from ..core.config import DataParamMode, TrainConfig
+from ..ops.augment import AugmentParams, augment_sample_pair, check_order, draw_augment
 from ..ops.dice import dice_from_int_labels
 from ..ops.resample import interpolate_sample
+from .losses import dp_loss_fn, weighted_cross_entropy
+from .optim import set_lr, sparse_adam_update
+from .state import DeepStapleState
+
+
+def resolve_augment_order(order: str, num_classes: int) -> str:
+    """The augment order for a dataset's class count (`step.py:71-85`): the
+    '-int6' and '-sep' warps pack binary labels only and fall back to the
+    matching '-int8' order for other class counts."""
+    if order.endswith("-int6") and num_classes != 2:
+        return order[: -len("-int6")] + "-int8"
+    if order.endswith("-sep") and num_classes != 2:
+        return order[: -len("-sep")] + "-int8"
+    return order
+
+
+def _swap_buffers(model, buffers):
+    """Copy `buffers` (name -> tensor) into the model's buffers; return the
+    values they held."""
+    held = {}
+    with torch.no_grad():
+        for name, b in model.named_buffers():
+            held[name] = b.clone()
+            b.copy_(buffers[name])
+    return held
+
+
+def make_train_step(model, config: TrainConfig, class_weights, fixed_weighting,
+                    augment_params: AugmentParams = AugmentParams(),
+                    pre_interpolation_factor: float = 1.5, augment: bool = True):
+    """Build `train_step(state, batch, lr, generator=None, draws=None)
+    -> (state, metrics)`.
+
+    `model` runs the forward (the state's model, or a model that shares its
+    parameters and buffers, `driver.make_warmup_model`); `state.optimizer`
+    updates its parameters. `batch` holds, on the model's device, "image"
+    (B, D, H, W) float32, "label" and "modified_label" (B, D, H, W) integers
+    and "dataset_idx" (B,). `generator` (a torch.Generator on that device)
+    feeds the augmentation and dropout; `draws` (`ops.augment.AugmentDraws`)
+    replaces the augmentation's draws. metrics: "loss", "ce_loss",
+    "dp_loss" (with data parameters), "dice" (B, num_classes), as tensors.
+    """
+    use_dp = config.data_param_mode == DataParamMode.INSTANCE_PARAMS
+    num_classes = len(class_weights)
+    if config.use_2d_normal_to is not None or config.use_mind:
+        raise NotImplementedError("the 2D and MIND train paths come with slice 5 of the port")
+    if config.ool_mode not in ("strict", "fused"):
+        raise ValueError(f"ool_mode {config.ool_mode!r} (expected 'strict' or 'fused')")
+    order = config.augment_order
+    if (order.endswith("-int6") or order.endswith("-sep")) and num_classes != 2:
+        raise ValueError(
+            f"augment_order {order!r} supports binary labels only (got {num_classes} "
+            "classes); use 'fast-int8' instead"
+        )
+    if augment:
+        check_order(order)
+    device = next(model.parameters()).device
+    class_weights = torch.as_tensor(class_weights, dtype=torch.float32).to(device)
+    fixed_weighting = torch.as_tensor(fixed_weighting, dtype=torch.float32).to(device)
+    async_bn = getattr(model, "bn_mode", "batch") == "async"
+
+    def forward(x, generator):
+        return model(x, train=True, generator=generator)["out"]
+
+    def dp_objective(dp_logits, mod, dp_vec, idxs):
+        fixed = fixed_weighting[idxs] if config.use_fixed_weighting else None
+        return dp_loss_fn(dp_logits, mod, dp_vec[idxs], fixed, config.use_risk_regularization)
+
+    def apply_grads(state, params, grads, lr):
+        for p, g in zip(params, grads):
+            p.grad = g
+        set_lr(state.optimizer, lr)
+        state.optimizer.step()
+        for p in params:
+            p.grad = None
+
+    def train_step(state: DeepStapleState, batch, lr, generator=None, draws=None):
+        img, lbl, mod = batch["image"], batch["label"], batch["modified_label"]
+        if augment:
+            if draws is None:
+                draws = draw_augment(generator, img.shape, augment_params, pre_interpolation_factor)
+            img, lbl, mod, _ = augment_sample_pair(img, lbl, mod, draws, augment_params,
+                                                   pre_interpolation_factor, order)
+        idxs = batch["dataset_idx"].long()
+        x = img[..., None]
+        params = [p for p in model.parameters() if p.requires_grad]
+        metrics = {}
+        dp_grads = None
+
+        if use_dp and not config.use_ool_dp_loss:
+            # One forward; the DP loss updates the model and the DP vector.
+            dp_vec = state.dp_params.detach().clone().requires_grad_(True)
+            logits = forward(x, generator)
+            dp_loss = dp_objective(logits, mod, dp_vec, idxs)
+            *grads, dp_grads = torch.autograd.grad(dp_loss, params + [dp_vec])
+            apply_grads(state, params, grads, lr)
+            logits = logits.detach()
+            with torch.no_grad():
+                ce_loss = weighted_cross_entropy(logits, mod, class_weights)
+            metrics["dp_loss"] = dp_loss.detach()
+        else:
+            strict_async = use_dp and config.ool_mode == "strict" and async_bn
+            start = {n: b.clone() for n, b in model.named_buffers()} if strict_async else None
+            logits = forward(x, generator)
+            ce_loss = weighted_cross_entropy(logits, mod, class_weights)
+            apply_grads(state, params, torch.autograd.grad(ce_loss, params), lr)
+            logits, ce_loss = logits.detach(), ce_loss.detach()
+            if use_dp:
+                if config.ool_mode == "strict":
+                    with torch.no_grad():
+                        if strict_async:
+                            after = _swap_buffers(model, start)
+                            dp_logits = forward(x, generator)
+                            _swap_buffers(model, after)
+                        else:
+                            dp_logits = forward(x, generator)
+                else:
+                    dp_logits = logits
+                dp_vec = state.dp_params.detach().clone().requires_grad_(True)
+                with torch.enable_grad():
+                    dp_loss = dp_objective(dp_logits, mod, dp_vec, idxs)
+                (dp_grads,) = torch.autograd.grad(dp_loss, [dp_vec])
+                metrics["dp_loss"] = dp_loss.detach()
+
+        dp_params, dp_opt = state.dp_params, state.dp_opt_state
+        if use_dp and not config.override_embedding_weights:
+            touched = torch.zeros_like(dp_params, dtype=torch.bool)
+            touched[idxs] = True
+            dp_params, dp_opt = sparse_adam_update(dp_params, dp_grads, dp_opt, touched,
+                                                   config.lr_inst_param)
+
+        with torch.no_grad():
+            metrics["dice"] = dice_from_int_labels(logits.argmax(dim=-1), lbl, num_classes)
+        metrics["ce_loss"] = ce_loss
+        metrics["loss"] = metrics.get("dp_loss", ce_loss)
+        state.step += 1
+        state.dp_params, state.dp_opt_state = dp_params, dp_opt
+        return state, metrics
+
+    return train_step
 
 
 def make_eval_step(model, config: TrainConfig, num_classes: int, eval_scale_factor: float = 2.0):

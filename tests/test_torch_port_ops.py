@@ -161,8 +161,6 @@ def test_batchnorm_eval_matches_flax(bn_mode):
     bn.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in {**params, **stats}.items()})
     got = bn(torch.from_numpy(x)).detach().numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError):
-        bn(torch.from_numpy(x), train=True)
 
 
 def test_np_ops_and_prep_match_jax():
@@ -263,9 +261,20 @@ def test_default_device_never_falls_back_to_cpu(tmp_path, monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(NotImplementedError):
         serve_mod.serve(tmp_path / "ckpt", [], tmp_path / "out", mesh_data=2, device="cpu")
-    # Only a CPU tensor takes the plain version; any other device raises.
+    # Only a CPU tensor takes the plain version; any other device raises, in
+    # the forward, both backward wrappers and K1.
+    from deep_staple_torch.ops.conv3d_dw import depthwise_conv3d_grad_w, depthwise_conv3d_grad_x
+    from deep_staple_torch.ops.sep_warp import sep_warp_pass
+
     x = torch.zeros(1, 3, 3, 3, 4, device="meta")
-    with pytest.raises(ValueError):
-        depthwise_conv3d(x, torch.zeros(27, 4, device="meta"))
+    w = torch.zeros(27, 4, device="meta")
+    g = torch.zeros(1, 2, 2, 2, 4, device="meta")
+    for call in (lambda: depthwise_conv3d(x, w), lambda: depthwise_conv3d(x.requires_grad_(), w),
+                 lambda: depthwise_conv3d_grad_x(g, w, 2, x.shape),
+                 lambda: depthwise_conv3d_grad_w(x, g, 2),
+                 lambda: sep_warp_pass(torch.zeros(2, 5, dtype=torch.int32, device="meta"),
+                                       torch.zeros(2, 5, device="meta"), 5)):
+        with pytest.raises(ValueError):
+            call()
     with pytest.raises((RuntimeError, AssertionError)):
         depthwise_conv3d(torch.zeros(1, 3, 3, 3, 4, device="cuda"), torch.zeros(27, 4))
