@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py [--seed 0] [--phases PHASE,...] [--json-out FILE]
 
-    phases: device, build, kernels, train_kernels, serve, e2e, profile,
-            train, train_e2e, train_profile, times (default: all)
+    phases: device, build, kernels, train_kernels, consensus_kernels, serve,
+            e2e, profile, train, train_e2e, train_profile, consensus, times
+            (default: all)
 
 Run from the repository root. It builds every kernel of the port from the
 sources in the checkout (one nvcc per source, all at once), holds each
@@ -21,7 +22,13 @@ give it, and drives both main paths at full size:
     2 slab-BatchNorm warmup steps then 3 async steps; the reference-default
     configuration (strict out-of-line, 'reference' augmentation, float32,
     exact BatchNorm, remat) runs 2 steps. One small float32 step is checked
-    against the CPU.
+    against the CPU;
+  * consensus: DP voting and STAPLE over synthetic train_label_snapshots at
+    the snapshot's x2.0 eval scale, 256x256x100: the CLI on a .npz of 4
+    fixed images x 10 atlases, and `evaluate_consensus` on 4 x 30 in
+    memory, with K4 (the fused EM pass) checked against its plain version
+    at those shapes and at edge shapes; card against CPU on 2 x 10 atlases
+    at 64x64x25.
 
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after. It times each kernel beside its bound, its plain
@@ -50,8 +57,8 @@ import numpy as np
 
 REPO = Path(__file__).resolve().parent
 WORK = REPO / "build" / "chip_smoke"
-PHASES = ("device", "build", "kernels", "train_kernels", "serve", "e2e", "profile",
-          "train", "train_e2e", "train_profile", "times")
+PHASES = ("device", "build", "kernels", "train_kernels", "consensus_kernels", "serve", "e2e",
+          "profile", "train", "train_e2e", "train_profile", "consensus", "times")
 
 # The depthwise conv's shapes at the serve CLI's defaults: size 128^3 with
 # crop (45, 95) gives 128x128x50, eval x2.0 gives 256x256x100 at the input,
@@ -84,6 +91,22 @@ EDGE_DW = [
 # lanes, then of H, then of D; and an odd L.
 SEP_EDGE = (4001, 37)
 
+# The consensus stage at full size: the snapshot stores labels at the x2.0
+# eval scale of the 128x128x50 training volume (`deep_staple_tpu/train/
+# snapshot.py:55-67`), and the atlas count follows the registration state,
+# 10 or 30 (`staple_pallas.py:5-7`). The CLI runs 4 fixed images x 10
+# atlases from a .npz, `evaluate_consensus` 4 x 30 in memory; the card is
+# held against the CPU on 2 x 10 at 64x64x25.
+CONS_SPATIAL = (256, 256, 100)
+CONS_CASES, CONS_ATLASES, CLI_ATLASES = 4, 30, 10
+CONS_SMALL = (2, 10, (64, 64, 25))
+# K4 at edge shapes: (C, R, V), R = 1, 3, 17 (not a multiple of 32) and 128
+# (the most the kernel takes); V = 1, a tile of 256 +/- 1, and 7x9x5.
+EDGE_STAPLE = [(2, R, V) for R in (1, 3, 17, 128) for V in (1, 255, 257, 315)]
+# Operations of one K4 pass a voxel, besides 4 a rater (a multiply-add each
+# for t and wd): the sigmoid (exp, add, divide), the mask and the w sum.
+STAPLE_OPS_PER_VOXEL = 8
+
 # Published peaks of one H100 SXM at 700 W (NVIDIA data sheet, dense): HBM
 # bytes/s, and float32 FLOP/s outside the tensor cores. The depthwise conv
 # and its gradients accumulate in float32 in both dtypes.
@@ -102,9 +125,16 @@ KERNELS = {
                                 "deep_staple_tpu/ops/conv3d_pallas.py:173"),
     "sep_warp_pass": ("deep_staple_torch/csrc/sep_warp_pass.cu",
                       "deep_staple_tpu/ops/sep_warp.py:323"),
+    "staple_em_iter": ("deep_staple_torch/csrc/staple_em.cu",
+                       "deep_staple_tpu/consensus/staple_pallas.py:44"),
 }
 # The kernels each main path must launch.
-PATH_KERNELS = {"serve": ("depthwise_conv3d_fwd",), "train": tuple(KERNELS)}
+PATH_KERNELS = {
+    "serve": ("depthwise_conv3d_fwd",),
+    "train": ("depthwise_conv3d_fwd", "depthwise_conv3d_grad_x", "depthwise_conv3d_grad_w",
+              "sep_warp_pass"),
+    "consensus": ("staple_em_iter",),
+}
 # The device of the kernel and training phases. main() runs only with CUDA;
 # a CPU rehearsal of the control flow may import this module and set "cpu".
 DEV = "cuda"
@@ -133,6 +163,7 @@ def timed_ms(fn, reps: int, warmup: int = 2) -> float:
 
 
 def _wrappers():
+    from deep_staple_torch.consensus import staple_fused
     from deep_staple_torch.ops import conv3d_dw, sep_warp
 
     return {
@@ -140,6 +171,7 @@ def _wrappers():
         "depthwise_conv3d_grad_x": conv3d_dw.depthwise_conv3d_grad_x,
         "depthwise_conv3d_grad_w": conv3d_dw.depthwise_conv3d_grad_w,
         "sep_warp_pass": sep_warp.sep_warp_pass,
+        "staple_em_iter": staple_fused.staple_em_iter,
     }
 
 
@@ -232,12 +264,14 @@ def phase_device(rec):
 
 
 def phase_build(rec):
+    from deep_staple_torch.consensus import staple_fused
     from deep_staple_torch.ops import conv3d_dw, cuda_build, sep_warp
 
     t = time.perf_counter()
     built = cuda_build.build_libraries(verbose=True)
     conv3d_dw.load_library()
     sep_warp.load_library()
+    staple_fused.load_library()
     rec["build_s"] = time.perf_counter() - t
     for so, messages in built.values():
         log(f"[build] {so.relative_to(REPO)}")
@@ -577,7 +611,7 @@ def _profile(tag, fn):
     busy_ms = sum(r[0] for r in rows)
     ours = {name: sum(r[0] for r in rows if name in r[2]) for name in (
         "dw3d_fwd_kernel", "dw3d_gx2_kernel", "dw3d_gw_kernel", "dw3d_gw_reduce_kernel",
-        "sep_warp_pass_kernel")}
+        "sep_warp_pass_kernel", "staple_em_kernel", "staple_reduce_kernel")}
     log(f"[{tag}] {wall_ms:.1f} ms wall, device busy {busy_ms:.1f} ms ({busy_ms / wall_ms:.0%}); "
         + ", ".join(f"{k} {v:.1f} ms" for k, v in ours.items() if v))
     for ms, count, name in rows[:15]:
@@ -837,6 +871,338 @@ def phase_train_profile(rec, data, cw, fixed, seed):
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------- consensus
+
+def consensus_labels(seed, cases, atlases, spatial):
+    """Expert labels (cases, *spatial) and atlas labels (cases, atlases,
+    *spatial), uint8, made with numpy from `seed`: per case a truth
+    ellipsoid (0.1-0.6% of the volume); each atlas label is the truth
+    shifted by up to 3 voxels along each axis (every fifth atlas, a poor
+    registration, by up to 8) with 0.1% of its voxels flipped."""
+    rng = np.random.RandomState(seed)
+    axes = np.ogrid[tuple(slice(-1.0, 1.0, complex(0, n)) for n in spatial)]
+    V = math.prod(spatial)
+    experts = np.empty((cases, *spatial), np.uint8)
+    labels = np.empty((cases, atlases, *spatial), np.uint8)
+    for c in range(cases):
+        ctr = rng.uniform(-0.3, 0.3, 3)
+        rad = rng.uniform(0.15, 0.25, 3)
+        experts[c] = sum(((a - m) / r) ** 2 for a, m, r in zip(axes, ctr, rad)) < 1.0
+        for a in range(atlases):
+            lim = 8 if a % 5 == 4 else 3
+            lab = np.roll(experts[c], rng.randint(-lim, lim + 1, 3), axis=(0, 1, 2))
+            flat = lab.reshape(-1)
+            flat[rng.randint(0, V, V // 1000)] ^= 1
+            labels[c, a] = lab
+    return experts, labels
+
+
+def consensus_snapshot(experts, labels, seed):
+    """A train_label_snapshot dict over those labels: rows "{case}l:m{atlas}l"
+    (the reference's id layout, `consensus.ipynb` cell 6:32-51), the expert
+    label as label and prediction, random DP values. Rows share the arrays."""
+    C, A = labels.shape[:2]
+    n = C * A
+    return {
+        "d_ids": [f"{c:03d}l:m{100 + a:03d}l" for c in range(C) for a in range(A)],
+        "data_parameters": np.random.RandomState(seed).randn(n).astype(np.float32),
+        "labels": [experts[c] for c in range(C) for _ in range(A)],
+        "modified_labels": [labels[c, a] for c in range(C) for a in range(A)],
+        "train_predictions": [experts[c] for c in range(C) for _ in range(A)],
+        "dataset_idxs": np.arange(n),
+        "image_paths": [f"case{c:03d}.nii.gz" for c in range(C) for _ in range(A)],
+        "label_paths": [f"atlas{c:03d}_{a:03d}.nii.gz" for c in range(C) for a in range(A)],
+        "disturb_flags": np.zeros(n, bool),
+    }
+
+
+def _staple_tols(d, coef, base, w_ref):
+    """Error bounds of a K4 pass against its plain version.
+
+    t_j sums R + 1 float32 terms, each side within (R + 1) u S_j of the
+    exact sum, S_j = |base| + sum_r |coef_r| d_rj, u = 2^-24; so |dw_j| <=
+    w_j |dt_j| plus a few ulp of the sigmoid (16 allowed). wd and ws sum
+    the V products d_rj w_j in other orders: each is held to the float64
+    sum of the plain version's products, within 1e-5 of it or no farther
+    than the plain version's own float32 sum is (cuBLAS's chains over
+    6.5M voxels are the less exact at full size), plus the w errors they
+    carry. -> (w tol (C, V), wd (reference, tol) (C, R), ws (reference,
+    tol) (C,), plain wd and ws) from the plain version's results."""
+    import torch
+
+    from deep_staple_torch.consensus.staple_fused import staple_em_iter_plain
+
+    R = d.shape[1]
+    u = 2.0 ** -24
+    err_w = []
+    exact_wd, exact_ws, carried_wd = [], [], []
+    for c in range(d.shape[0]):  # one case at a time: float64 copies of D are large
+        df = d[c].double()
+        w64 = w_ref[c].double()
+        S = base[c].abs().double() + coef[c].abs().double() @ df
+        e = 2 * (R + 1) * u * S * w64 + 16 * u * w64 + 1e-30
+        err_w.append(e.float())
+        exact_wd.append(df @ w64)
+        exact_ws.append(w64.sum())
+        carried_wd.append(df @ e)
+        del df
+    rwd, rws = staple_em_iter_plain(d, coef, base)
+    exact_wd, exact_ws = torch.stack(exact_wd), torch.stack(exact_ws)
+    err_w = torch.stack(err_w)
+    tol_wd = torch.maximum(1e-5 * exact_wd.abs(), (rwd.double() - exact_wd).abs()) \
+        + torch.stack(carried_wd)
+    tol_ws = torch.maximum(1e-5 * exact_ws.abs(), (rws.double() - exact_ws).abs()) + err_w.double().sum(1)
+    return err_w, (exact_wd, tol_wd), (exact_ws, tol_ws), (rwd, rws)
+
+
+def _staple_kernel_case(gen, C, R, V, d=None):
+    """Decisions (random 0/1 at 30% unless given), and coef, base from
+    sensitivities in [0.8, 1) and specificities in [0.9, 1), prior 0.3."""
+    import torch
+
+    from deep_staple_torch.consensus.staple import _coefs
+
+    if d is None:
+        d = torch.empty((C, R, V), dtype=torch.uint8, device=DEV)
+        for c in range(C):
+            d[c] = torch.rand((R, V), generator=gen, device=DEV) < 0.3
+    p = 0.8 + 0.2 * torch.rand((C, R), generator=gen, device=DEV)
+    q = 0.9 + 0.1 * torch.rand((C, R), generator=gen, device=DEV)
+    prior = torch.full((C,), 0.3, device=DEV)
+    coef, base = _coefs(p.clamp(max=0.99999), q.clamp(max=0.99999),
+                        torch.log(prior) - torch.log1p(-prior))
+    return d, coef, base
+
+
+def phase_consensus_kernels(rec, seed, labels):
+    """K4 against its plain version on the card: one pass and the posterior
+    at the consensus path's shapes (4 cases x 10 and x 30 atlases x
+    256x256x100, random decisions) and at the edge shapes, with one case of
+    two inactive; then the whole EM loop on the full-size synthetic labels:
+    twice on the kernel (bitwise equal) and once on the plain version."""
+    import torch
+
+    from deep_staple_torch.consensus import staple
+    from deep_staple_torch.consensus.staple_fused import (
+        staple_em_iter,
+        staple_em_iter_plain,
+        staple_posterior,
+        staple_posterior_plain,
+    )
+
+    gen = torch.Generator(device=DEV).manual_seed(seed + 3)
+    V = math.prod(CONS_SPATIAL)
+    failures, worst = [], 0.0
+    shapes = [(CONS_CASES, R, V) for R in (CLI_ATLASES, CONS_ATLASES)] + EDGE_STAPLE
+    for C, R, Vs in shapes:
+        d, coef, base = _staple_kernel_case(gen, C, R, Vs)
+        active = torch.ones(C, dtype=torch.bool, device=DEV)
+        if Vs < V:
+            active[0] = False  # the kernel skips it; its rows are not compared
+        wd, ws = staple_em_iter(d, coef, base, active)
+        w = staple_posterior(d, coef, base)
+        rw = staple_posterior_plain(d, coef, base)
+        tol_w, (xwd, tol_wd), (xws, tol_ws), (rwd, rws) = _staple_tols(d, coef, base, rw)
+        a = active
+        dwd, dws, dw = (wd - rwd)[a].abs(), (ws - rws)[a].abs(), (w - rw).abs()
+        kwd = (wd[a].double() - xwd[a]).abs()
+        kws = (ws[a].double() - xws[a]).abs()
+        ok = bool((kwd <= tol_wd[a]).all()) and bool((kws <= tol_ws[a]).all()) and \
+            bool((dw <= tol_w).all())
+        err = max(float(dwd.max()), float(dws.max()), float(dw.max()))
+        worst = max(worst, err)
+        rel = {k: float((x / y.abs().clamp(min=1e-30)).max()) for k, x, y in (
+            ("kernel", kwd, xwd[a]), ("plain", (rwd[a].double() - xwd[a]).abs(), xwd[a]))}
+        log(f"[consensus_kernels] staple_em_iter C={C} R={R:3d} V={Vs:8d}: max |d wd| "
+            f"{float(dwd.max()):.3e} |d ws| {float(dws.max()):.3e} vs plain; wd vs its float64 "
+            f"sum: kernel {rel['kernel']:.2e}, plain {rel['plain']:.2e} relative (tol 1e-5 or the "
+            f"plain's, + the w errors carried); max |d w| {float(dw.max()):.3e} (the bound of t's "
+            f"sum order) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append((C, R, Vs))
+        del d, coef, base, wd, ws, w, rwd, rws, rw, tol_w, tol_wd, tol_ws, dw, xwd, xws
+        torch.cuda.empty_cache()
+
+    # The EM loop. At epsilon 1e-7 the stop sits at float32's noise (delta
+    # sums 2R differences of values near 1), so kernel and plain version
+    # may stop an iteration or more apart, or one may cycle to the cap:
+    # there the results are compared. At epsilon 1e-5 the stop lies above
+    # the noise: there the iteration counts are held equal too.
+    loops = {}
+    plain_iter = lambda dd, c, b, _active: staple_em_iter_plain(dd, c, b)  # noqa: E731
+    for R in (CLI_ATLASES, CONS_ATLASES):
+        d = torch.from_numpy(labels[:, :R].reshape(CONS_CASES, R, -1)).to(DEV)
+        prior = staple.priors(d)
+        row = {}
+        for eps in (1e-7, 1e-5):
+            runs = [staple._em_loop(d, prior, 200, eps, staple.SYNC_EVERY) for _ in range(2)]
+            same = all(torch.equal(x, y) for x, y in zip(*runs))
+            p, q, w, it = runs[0]
+            del runs
+            pp, pq, pw, pit = staple._em_loop(d, prior, 200, eps, staple.SYNC_EVERY,
+                                              em_iter=plain_iter, posterior=staple_posterior_plain)
+            dpq = max(float((p - pp).abs().max()), float((q - pq).abs().max()))
+            flips = (w > 0.5) != (pw > 0.5)
+            near = (pw - 0.5).abs() < 1e-3
+            ok = same and dpq <= 1e-4 and not bool((flips & ~near).any()) and \
+                (eps < 1e-6 or torch.equal(it, pit))
+            row[str(eps)] = {"iterations": it.tolist(), "plain_iterations": pit.tolist(),
+                             "bitwise_repeat": same, "max_abs_pq": dpq,
+                             "flips": int(flips.sum()), "voxels_near_half": int(near.sum())}
+            log(f"[consensus_kernels] EM loop {CONS_CASES} x {R} atlases x {CONS_SPATIAL}, epsilon "
+                f"{eps:g}: iterations {it.tolist()} (plain {pit.tolist()}"
+                f"{'' if eps < 1e-6 else ', held equal'}), two runs bitwise equal {same}, max "
+                f"|d p|, |d q| vs plain {dpq:.3e} (tol 1e-4), consensus flips {int(flips.sum())} "
+                f"({int((flips & ~near).sum())} outside |w - 0.5| < 1e-3) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(("loop", R, eps))
+            del p, q, w, pp, pq, pw, flips, near
+        loops[R] = row
+        del d
+        torch.cuda.empty_cache()
+    rec["consensus_loops"] = loops
+    rec.setdefault("kernel_check", {})["staple_em_iter.consensus"] = {"float32": worst}
+    if failures:
+        raise AssertionError(f"K4 disagrees with its plain version: {failures}")
+
+
+def _sync():
+    import torch
+
+    torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+def phase_consensus(rec, seed, experts, labels):
+    """The consensus path: the CLI on a .npz snapshot of 4 fixed images x 10
+    atlases and `evaluate_consensus` on 4 x 30 in memory, both at
+    256x256x100, counting K4's launches; where the 4 x 30 group's time goes;
+    and the card against the CPU on 2 x 10 atlases at 64x64x25."""
+    import torch
+
+    from deep_staple_torch.consensus import staple
+    from deep_staple_torch.consensus.__main__ import main as consensus_cli
+    from deep_staple_torch.consensus import evaluate
+    from deep_staple_torch.consensus.evaluate import build_consensus_dicts, evaluate_consensus
+    from deep_staple_torch.consensus.interop import load_consensus_dicts_pth
+    from deep_staple_torch.consensus.voting import calc_dp_consensus_batch
+    from deep_staple_torch.data.snapshot_io import load_snapshot, save_snapshot
+    from deep_staple_torch.ops.dice import dice_from_int_labels
+
+    out = WORK / "consensus"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    res = rec["consensus"] = {}
+    t = time.perf_counter()
+    npz = out / "train_label_snapshot.npz"
+    save_snapshot(npz, consensus_snapshot(experts, labels[:, :CLI_ATLASES], seed))
+    res["npz_write_s"] = time.perf_counter() - t
+    res["npz_mb"] = npz.stat().st_size / 1e6
+
+    # The CLI, 4 x 10 atlases.
+    reset_counts()
+    t = _sync()
+    consensus_cli(["--snapshot", str(npz), "--output", str(out / "cd.pth"), "--device", DEV])
+    cli_s = _sync() - t
+    cli_counts = read_counts()
+    cd = load_consensus_dicts_pth(out / "cd.pth")
+    bad = []
+    for f_id, fixed in cd.items():
+        for key in ("dp_consensus", "staple_consensus"):
+            v = fixed[key]
+            if v.shape != CONS_SPATIAL or not set(np.unique(v).tolist()) <= {0, 1}:
+                bad.append((f_id, key, v.shape))
+        dice = np.concatenate([fixed["dp_consensus_oracle_dice"], fixed["staple_consensus_oracle_dice"]])
+        sens = [m["staple_sensitivity"] for m in fixed.values() if isinstance(m, dict)]
+        if not (np.isfinite(dice).all() and (0 <= dice).all() and (dice <= 1).all()
+                and len(sens) == CLI_ATLASES and all(0 <= s <= 1 for s in sens)):
+            bad.append((f_id, "dice/sensitivity", dice.tolist()))
+    res["cli"] = {"seconds": cli_s, "launches": cli_counts["staple_em_iter"],
+                  "staple_dice": [float(f["staple_consensus_oracle_dice"][0, 1]) for f in cd.values()],
+                  "dp_dice": [float(f["dp_consensus_oracle_dice"][0, 1]) for f in cd.values()]}
+    log(f"[consensus] CLI {len(cd)} fixed images x {CLI_ATLASES} atlases x {CONS_SPATIAL} "
+        f"from a {res['npz_mb']:.1f} MB .npz: {cli_s:.2f} s (snapshot load included), K4 "
+        f"launches {cli_counts['staple_em_iter']}, STAPLE dice "
+        f"{[round(x, 4) for x in res['cli']['staple_dice']]}, DP dice "
+        f"{[round(x, 4) for x in res['cli']['dp_dice']]}")
+    if len(cd) != CONS_CASES or bad or cli_counts["staple_em_iter"] == 0:
+        raise AssertionError(f"consensus CLI output: {len(cd)} cases, faults {bad}, {cli_counts}")
+
+    # evaluate_consensus, 4 x 30 atlases in memory: one group.
+    snap = consensus_snapshot(experts, labels, seed)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t = _sync()
+    cd30 = evaluate_consensus(snap, device=DEV)
+    group_ms = (_sync() - t) * 1e3
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    _record_path(rec, "consensus", {k: v + cli_counts[k] for k, v in counts.items()})
+    res["evaluate"] = {"ms_per_group": group_ms, "peak_mem_gb": peak_gb,
+                       "launches": counts["staple_em_iter"],
+                       "staple_dice": [float(f["staple_consensus_oracle_dice"][0, 1]) for f in cd30.values()]}
+    log(f"[consensus] evaluate_consensus {CONS_CASES} x {CONS_ATLASES} atlases x {CONS_SPATIAL}: "
+        f"{group_ms:.1f} ms for the group, peak memory {peak_gb:.2f} GB, K4 launches "
+        f"{counts['staple_em_iter']}, STAPLE dice {[round(x, 4) for x in res['evaluate']['staple_dice']]}")
+
+    # Where the group's time goes: each stage alone, as evaluate_consensus runs it.
+    t = time.perf_counter()
+    load_snapshot(npz)
+    load_s = time.perf_counter() - t
+    t = _sync()
+    fixed = build_consensus_dicts(snap)
+    (members,) = evaluate._groups(fixed)
+    lbls, dps, exp_t = evaluate._group_tensors(fixed, members, DEV)
+    t1 = _sync()
+    dp_cons = calc_dp_consensus_batch(lbls, dps)
+    t2 = _sync()
+    st = staple.staple_consensus_batch(lbls)
+    t3 = _sync()
+    dice_from_int_labels(dp_cons, exp_t, 2, nan_for_unlabeled_target=False).cpu()
+    dice_from_int_labels(st.consensus, exp_t, 2, nan_for_unlabeled_target=False).cpu()
+    t4 = _sync()
+    iters = st.iterations.tolist()
+    stages = {"snapshot_load_4x10_npz_ms": load_s * 1e3, "regroup_stack_copy_ms": (t1 - t) * 1e3,
+              "voting_ms": (t2 - t1) * 1e3, "staple_ms": (t3 - t2) * 1e3, "dice_ms": (t4 - t3) * 1e3,
+              "staple_iterations": iters, "staple_ms_per_iteration": (t3 - t2) * 1e3 / max(iters)}
+    res["stages"] = stages
+    log(f"[consensus] stages of the 4 x 30 group: regroup + stack + copy to the card "
+        f"{stages['regroup_stack_copy_ms']:.1f} ms, voting {stages['voting_ms']:.1f} ms, STAPLE "
+        f"{stages['staple_ms']:.1f} ms ({iters} iterations, "
+        f"{stages['staple_ms_per_iteration']:.3f} ms an iteration), dice "
+        f"{stages['dice_ms']:.1f} ms; loading the 4 x 10 .npz {stages['snapshot_load_4x10_npz_ms']:.1f} ms")
+    del lbls, dps, exp_t, dp_cons, st, fixed
+    torch.cuda.empty_cache()
+    res["profile"] = _profile("consensus evaluate 4x30", lambda: evaluate_consensus(snap, device=DEV))
+
+    # Card against CPU, 2 x 10 atlases at 64x64x25.
+    C, A, spatial = CONS_SMALL
+    e_small, l_small = consensus_labels(seed + 1, C, A, spatial)
+    small = consensus_snapshot(e_small, l_small, seed + 1)
+    got = evaluate_consensus(small, device=DEV)
+    ref = evaluate_consensus(small, device="cpu")
+    post = staple.staple_consensus_batch(torch.from_numpy(l_small).to(DEV)).probabilities.cpu()
+    faults = []
+    for ci, f_id in enumerate(ref):
+        g, r = got[f_id], ref[f_id]
+        if not np.array_equal(g["dp_consensus"], r["dp_consensus"]):
+            faults.append((f_id, "dp_consensus"))
+        flips = (g["staple_consensus"] != r["staple_consensus"]).reshape(-1)
+        if ((post[ci] - 0.5).abs().numpy() >= 1e-3)[flips].any():
+            faults.append((f_id, "staple_consensus", int(flips.sum())))
+        d_pq = max(abs(g[m][k] - r[m][k]) for m in g if isinstance(g[m], dict)
+                   for k in ("staple_sensitivity", "staple_specificity"))
+        if d_pq > 1e-4:
+            faults.append((f_id, "sens/spec", d_pq))
+        res.setdefault("card_vs_cpu", {})[f_id] = {"staple_flips": int(flips.sum()), "max_abs_pq": d_pq}
+    log(f"[consensus] card vs CPU, {C} x {A} atlases x {spatial}: {res['card_vs_cpu']} "
+        f"(DP consensus equal, STAPLE flips only within 1e-3 of 0.5, sens/spec within 1e-4) "
+        f"{'ok' if not faults else 'FAIL'}")
+    shutil.rmtree(out, ignore_errors=True)
+    if faults:
+        raise AssertionError(f"the card disagrees with the CPU on the consensus: {faults}")
+
+
 # ----------------------------------------------------------------- times
 
 def _time_row(kernel_fn, plain_fn, library_fn, nbytes, ops, reps=10):
@@ -919,10 +1285,48 @@ def phase_times(rec, seed):
             f"kernel {row['ms']:8.3f} ms bound {row['bound_ms']:7.3f} ms ({row['bound_by']}) "
             f"plain {row['plain_ms']:8.3f} ms library none")
         del word, cc
+    times["staple_em_iter"] = _staple_times(gen)
     for name, fn in _wrappers().items():
         fn.launches = saved[name]
     rec["times"] = times
     rec["peaks"] = {"hbm_bytes_per_s": HBM_BYTES_PER_S, "f32_flop_per_s": F32_FLOP_PER_S}
+
+
+def _staple_times(gen):
+    """K4, one pass, at 4 cases (the consensus path's groups) and 1 case of
+    10 and 30 atlases at 256x256x100, beside its plain version and the
+    library's: w = sigmoid(base + coef @ Df), wd = Df @ w, ws = sum w with
+    cuBLAS batched products on a float32 copy Df of the decisions (made
+    outside the timing; the port never makes it)."""
+    import torch
+
+    from deep_staple_torch.consensus.staple_fused import staple_em_iter, staple_em_iter_plain
+
+    V = math.prod(CONS_SPATIAL)
+    rows = {"consensus": {"float32": []}, "shapes": []}
+    for C in (CONS_CASES, 1):
+        for R in (CLI_ATLASES, CONS_ATLASES):
+            d, coef, base = _staple_kernel_case(gen, C, R, V)
+            active = torch.ones(C, dtype=torch.bool, device=DEV)
+            df = d.float()
+
+            def library():
+                w = torch.sigmoid(base[:, None] + torch.bmm(coef[:, None, :], df)[:, 0])
+                return torch.bmm(df, w[:, :, None]), w.sum(dim=1)
+
+            row = {"shape": [C, R, V], **_time_row(
+                lambda: staple_em_iter(d, coef, base, active),
+                lambda: staple_em_iter_plain(d, coef, base), library,
+                C * R * V + 4 * C * (2 * R + 1) + C, C * V * (4 * R + STAPLE_OPS_PER_VOXEL))}
+            rows["shapes"].append(row)
+            if C == CONS_CASES and R == CONS_ATLASES:
+                rows["consensus"]["float32"].append(row)
+            log(f"[times] {'staple_em_iter':24s} {'float32':8s} {str((C, R, V)):22s}    "
+                f"kernel {row['ms']:8.3f} ms bound {row['bound_ms']:7.3f} ms ({row['bound_by']}) "
+                f"plain {row['plain_ms']:8.3f} ms library {row['library_ms']:8.3f} ms")
+            del d, coef, base, df
+            torch.cuda.empty_cache()
+    return rows
 
 
 def _sums(rows):
@@ -937,14 +1341,15 @@ def summary_line(rec):
     """The {"kernels": [...]} record. The forward's numbers are sums over the
     ten calls of one serving forward (batch 4, as since it was ported), with
     one training forward beside them; the backward kernels' are sums over
-    one training step's ten calls (batch 8), K1's over its three passes.
-    float32 at the top level, bfloat16 alongside."""
+    one training step's ten calls (batch 8), K1's over its three passes;
+    K4's are one EM pass over the 4 x 30 group, with 4 x 10 and one case
+    beside them. float32 at the top level, bfloat16 alongside."""
     times = rec.get("times", {})
     checks = rec.get("kernel_check", {})
     paths = rec.get("main_path_launches", {})
     entries = []
     for name, (source, replaces) in KERNELS.items():
-        head_path = "serve" if name == "depthwise_conv3d_fwd" else "train"
+        head_path = {"depthwise_conv3d_fwd": "serve", "staple_em_iter": "consensus"}.get(name, "train")
         rows = times.get(name, {})
         main = _sums(rows[head_path]["float32"]) if head_path in rows else {}
         errs = [v.get("float32", 0.0) for k, v in checks.items() if k.startswith(name + ".")]
@@ -959,8 +1364,12 @@ def summary_line(rec):
             "basis": {
                 "depthwise_conv3d_fwd": "sum over the 10 calls of one serving forward, batch 4",
                 "sep_warp_pass": "sum over the 3 passes of one training batch, batch 8",
+                "staple_em_iter": "one EM pass over the evaluate group, 4 cases x 30 atlases "
+                                  "x 256x256x100 (one a group's EM iteration)",
             }.get(name, "sum over the 10 calls of one training step, batch 8") + ", float32",
         }
+        if name == "staple_em_iter":
+            entry["per_shape"] = rows.get("shapes", [])
         if name == "sep_warp_pass":
             entry["library_note"] = ("no single PyTorch call computes one pass's in-row "
                                      "gather, int12 lerp and 2-bit code")
@@ -1004,6 +1413,14 @@ def main(argv=None):
         phase_kernels(rec, args.seed)
     if "train_kernels" in phases:
         phase_train_kernels(rec, args.seed)
+    cons = None
+    if {"consensus_kernels", "consensus"} & set(phases):
+        t = time.perf_counter()
+        cons = consensus_labels(args.seed, CONS_CASES, CONS_ATLASES, CONS_SPATIAL)
+        log(f"[consensus] {CONS_CASES} x {CONS_ATLASES} synthetic atlas labels at {CONS_SPATIAL} "
+            f"made in {time.perf_counter() - t:.1f} s")
+    if "consensus_kernels" in phases:
+        phase_consensus_kernels(rec, args.seed, cons[1])
     if {"serve", "e2e", "profile"} & set(phases):
         inputs, variables, small, ckpts = _setup_serving(rec, args.seed)
         if "serve" in phases:
@@ -1023,6 +1440,9 @@ def main(argv=None):
         torch.cuda.empty_cache()
     if "train_e2e" in phases:
         phase_train_e2e(rec, args.seed)
+    if "consensus" in phases:
+        phase_consensus(rec, args.seed, *cons)
+    del cons
     if "times" in phases:
         phase_times(rec, args.seed)
     rec["seconds"] = time.perf_counter() - t0

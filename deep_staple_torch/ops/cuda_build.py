@@ -24,7 +24,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
-SOURCES = ("depthwise_conv3d", "sep_warp_pass")
+SOURCES = ("depthwise_conv3d", "sep_warp_pass", "staple_em")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
