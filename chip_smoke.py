@@ -82,10 +82,20 @@ TRAIN_DW = (
 )
 DATASET_LEN = 64
 # Odd extents and channel counts that are not a multiple of the vector width.
+# Then shapes that cut the forward kernel's tiles raggedly (64-byte channel
+# tiles, 8 x 16 outputs of (y, x) at stride 1 and 8 x 8 at stride 2, 4 rows
+# in bf16, z segments of at most 16 planes): H and W not multiples of a tile and
+# extents below one, D below a segment and one past one, C = 16, 48 and 144
+# (not multiples of 32 bf16 channels), and C = 6, whose voxel is no multiple
+# of 16 bytes.
 EDGE_DW = [
     ((2, 7, 5, 4, 5), 1), ((2, 7, 5, 4, 5), 2),
     ((1, 8, 6, 5, 130), 1), ((1, 8, 6, 5, 130), 2),
     ((1, 9, 7, 5, 6), 2), ((3, 25, 9, 50, 130), 1), ((1, 25, 50, 25, 130), 2),
+    ((2, 17, 13, 21, 16), 1), ((2, 33, 13, 21, 16), 2),
+    ((1, 5, 3, 7, 48), 1), ((1, 5, 3, 7, 48), 2),
+    ((1, 16, 20, 35, 144), 1), ((1, 15, 20, 35, 144), 2),
+    ((2, 6, 9, 19, 6), 1),
 ]
 # K1 (one scanline pass) at the three passes of a full-size batch: rows of W
 # lanes, then of H, then of D; and an odd L.

@@ -19,21 +19,40 @@
 // tensor cores is 67 TFLOP/s over 3.35 TB/s = 20 flop/byte, so the least time
 // is the bytes of x and y over the memory rate.
 //
-// What the design does about it: every input element should come from device
-// memory about once, and the arithmetic must not stall the loads.
-//  * A thread owns VEC adjacent channels (4 x f32 = 16 B, or 2 x bf16) of one
-//    (yo, xo) output column and walks a segment of kZSeg output planes along
-//    z. It reads each input plane once, for its 9 (dy, dx) taps, and adds the
-//    plane into the rolling accumulators of every output that plane feeds:
-//    three for stride 1 (taps dz = 0, 1, 2 of outputs z+1, z, z-1), two for
-//    stride 2. The three-fold reuse along z costs no loads.
-//  * The (dy, dx) reuse comes from L1: a block covers a TY x TX tile of
-//    (yo, xo) for one channel tile, so its threads load overlapping lines;
-//    adjacent threads run along C, so a warp's loads are contiguous.
-//  * The channel tile's (27, ct) weights are staged in shared memory, then
-//    held in registers for the whole z segment.
-// Not done yet: TMA or cp.async staging of a shared-memory halo ring, which
-// would make the (dy, dx) reuse explicit instead of leaving it to L1 and L2.
+// What the design does about it (dw3d_fwd_kernel): every input byte comes
+// from device memory about once, enough bytes are in flight, and the FMAs
+// run while the next planes load.
+//  * A block owns a channel tile of 64 bytes a voxel (16 f32 or 32 bf16
+//    channels), a TY x TX tile of (yo, xo) and a segment of at most kZSeg
+//    output planes, which it walks along z. Each input plane's slab of
+//    ((TY-1)s+3) x (TX s+2) voxels x 64 bytes is copied into a ring of
+//    kStages slabs in shared memory with cp.async (16-byte copies; src-size
+//    0 writes the zero padding, so the FMA loop has no branch). The copies
+//    of the next kStages-1 planes are in flight while a plane is summed; one
+//    barrier a plane.
+//  * A thread owns 4 bytes of channels (1 f32 or 2 bf16) x NX adjacent
+//    outputs along x (8 f32, 4 bf16). For each (dy) row of a plane it reads
+//    NX+2 (stride 1) or 2 NX+1 (stride 2) values from shared memory once
+//    and uses each for up to 3 dx taps, into the rolling z accumulators:
+//    three (outputs zi+1, zi, zi-1) at stride 1, two at stride 2. Its 27
+//    weights stay in registers; 108-128 registers a thread, no spills.
+//  * Shared memory is read without bank conflicts: 16 lanes of 4 bytes
+//    read one voxel, and the two voxels of a warp's read lie one output row
+//    apart; the slab's voxel slots are swizzled (x ^ row bit) so that those
+//    two fall into different halves of the banks.
+// Channel counts whose voxel is not a multiple of 16 bytes, or unaligned
+// tensors, take the same kernel with element copies and scalar stores.
+//
+// What it reached (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py's times
+// phase): 12.8 ms per f32 serving forward against a 7.29 ms bound, 12.1 ms
+// in bf16 against 3.65 (the previous design: 62 / 42 ms). The tile sizes
+// (TY x TX = 8 x 16 at stride 1, 8 x 8 at stride 2, TY = 4 in bf16, 4 / 3
+// stages) came from an A/B of variants (taller or shorter tiles, 3 to 6
+// stages, 2 f32 channels or 4 outputs a thread): each was slower or within
+// 3%. f32 and bf16 take about the same time, so what bounds it now is not
+// the bytes (f32 moves 57% of the HBM rate) but the SM's instruction rate:
+// the FMAs, the shared-memory loads and the copies' index arithmetic, at 16
+// warps an SM.
 //
 // Plain C interface, loaded with ctypes (at the end of the file).
 
@@ -43,11 +62,12 @@
 #include <climits>
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
-constexpr int kThreads = 256;  // target threads per block
-constexpr int kZSeg = 16;      // output planes a thread walks along z
+constexpr int kThreads = 256;  // target threads per block of the backward kernels
+constexpr int kZSeg = 16;      // most planes a block (a thread) walks along z
 
 __device__ __forceinline__ void load(const float* p, float (&v)[4]) {
   const float4 t = *reinterpret_cast<const float4*>(p);
@@ -73,6 +93,300 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, const float (&v)[1]) {
   *p = __float2bfloat16(v[0]);
 }
 
+template <int VEC>
+__device__ __forceinline__ void fma_taps(float (&acc)[VEC], const float (&v)[VEC],
+                                         const float (&w)[VEC]) {
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) acc[k] = fmaf(v[k], w[k], acc[k]);
+}
+
+// ------------------------------------------------------------------ forward
+
+// 16-byte asynchronous copy into shared memory; n = 0 writes 16 zero bytes
+// and reads nothing (the address must still be a valid one).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int n) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The forward's tiling: TY x TX outputs of (yo, xo) a block, NX along x a
+// thread, a voxel of CT channels = 64 bytes read by 16 lanes of 4 bytes,
+// kStages slabs in the ring.
+template <typename T, int STRIDE>
+struct FwdTile {
+  static constexpr int VEC = 4 / sizeof(T);          // channels a thread
+  static constexpr int CT = 64 / sizeof(T);          // channels a block
+  static constexpr int CL = CT / VEC;                // lanes along C
+  static constexpr int TY = sizeof(T) == 4 ? 8 : 4;
+  static constexpr int TX = STRIDE == 1 ? 16 : 8;
+  static constexpr int NX = sizeof(T) == 4 ? 8 : 4;  // outputs a thread along x
+  static constexpr int kStages = STRIDE == 1 ? 4 : 3;
+  static constexpr int THREADS = CL * TY * (TX / NX);
+  static constexpr int ROWS = (TY - 1) * STRIDE + 3;  // input rows of a slab
+  static constexpr int RS = TX * STRIDE + 2;          // voxel slots a slab row (even)
+  static constexpr int SLAB = ROWS * RS * CT;         // elements of a slab
+  static constexpr int MIN_BLOCKS = 65536 / (THREADS * 128);  // at most 128 registers a thread
+  static_assert(NX % 2 == 0 && RS % 2 == 0, "the swizzle pairs voxel slots 2k, 2k+1");
+};
+
+struct FwdGeometry {
+  int D, H, W, C;              // input extents
+  int Do, Ho, Wo;              // output extents
+  int n_ct, n_xt, n_yt, n_zt;  // tiles along C, W, H, and z segments
+  int zseg;                    // output planes a z segment
+};
+
+// Slot of voxel x of slab row r: pairs (2k, 2k+1) swap on bit STRIDE-1 of r,
+// so that rows r and r + STRIDE (one output row apart) use opposite halves
+// of the banks.
+template <int STRIDE>
+__device__ __forceinline__ int slot_flip(int r) {
+  return (r >> (STRIDE - 1)) & 1;
+}
+
+// Copies input plane zi of the block's slab into `slab`. VECIO: 16-byte
+// cp.async copies (C * sizeof(T) a multiple of 16 and x 16-byte aligned);
+// else one element a copy, through registers. Out-of-volume voxels and
+// channels past C are written as zeros.
+template <typename T, int STRIDE, bool VECIO>
+__device__ __forceinline__ void copy_slab(const T* __restrict__ x, T* slab, const FwdGeometry& g,
+                                          int64_t b, int zi, int yi0, int xi0, int c0, int tid) {
+  using F = FwdTile<T, STRIDE>;
+  constexpr int EPC = VECIO ? 16 / sizeof(T) : 1;  // elements a copy
+  constexpr int QV = F::CT / EPC;                  // copies a voxel
+  constexpr int N = F::ROWS * F::RS * QV;
+  const int64_t plane = (b * g.D + zi) * static_cast<int64_t>(g.H);
+  for (int i = tid; i < N; i += F::THREADS) {
+    const int q = i % QV;
+    const int v = i / QV;
+    const int xs = v % F::RS, r = v / F::RS;
+    const int yi = yi0 + r, xi = xi0 + xs, c = c0 + q * EPC;
+    const bool ok = yi >= 0 && yi < g.H && xi >= 0 && xi < g.W && c < g.C;
+    const int64_t off = ok ? ((plane + yi) * g.W + xi) * g.C + c : 0;
+    T* dst = slab + (r * F::RS + (xs ^ slot_flip<STRIDE>(r))) * F::CT + q * EPC;
+    if constexpr (VECIO) {
+      cp_async16(dst, x + off, ok ? 16 : 0);
+    } else {
+      using Bits = std::conditional_t<sizeof(T) == 4, uint32_t, uint16_t>;
+      *reinterpret_cast<Bits*>(dst) = ok ? reinterpret_cast<const Bits*>(x)[off] : Bits(0);
+    }
+  }
+}
+
+// Stores one output voxel's VEC channels: a vector store where C allows it,
+// else each channel below C.
+template <typename T, int VEC, bool VECIO>
+__device__ __forceinline__ void store_out(T* p, const float (&v)[VEC], int c, int C) {
+  if constexpr (VECIO) {
+    store(p, v);
+  } else {
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      if (c + k < C) {
+        const float e[1] = {v[k]};
+        store(p + k, e);
+      }
+    }
+  }
+}
+
+// FLIP reads tap 26 - t where the forward reads tap t: the stride-1 input
+// gradient (conv3d_pallas.py:264-269).
+template <typename T, int STRIDE, bool FLIP, bool VECIO>
+__global__ void __launch_bounds__(FwdTile<T, STRIDE>::THREADS, FwdTile<T, STRIDE>::MIN_BLOCKS)
+dw3d_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w27, T* __restrict__ y,
+                FwdGeometry g) {
+  using F = FwdTile<T, STRIDE>;
+  constexpr int VEC = F::VEC, NX = F::NX;
+  extern __shared__ __align__(16) unsigned char fwd_smem[];
+  T* ring = reinterpret_cast<T*>(fwd_smem);                           // kStages slabs
+  float* w_s = reinterpret_cast<float*>(ring + F::kStages * F::SLAB);  // (27, CT)
+
+  int64_t bid = blockIdx.x;
+  const int ct = static_cast<int>(bid % g.n_ct); bid /= g.n_ct;
+  const int xt = static_cast<int>(bid % g.n_xt); bid /= g.n_xt;
+  const int yt = static_cast<int>(bid % g.n_yt); bid /= g.n_yt;
+  const int zt = static_cast<int>(bid % g.n_zt); bid /= g.n_zt;
+  const int64_t b = bid;
+
+  const int tid = threadIdx.x;
+  const int cl = tid % F::CL;               // lane along C
+  const int ty = (tid / F::CL) % F::TY;     // output row in the tile
+  const int xg = tid / (F::CL * F::TY);     // group of NX outputs along x
+  const int c0 = ct * F::CT;
+  const int c = c0 + cl * VEC;
+  const int yo = yt * F::TY + ty;
+  const int xo0 = xt * F::TX + xg * NX;
+  const int yi0 = yt * F::TY * STRIDE - 1, xi0 = xt * F::TX * STRIDE - 1;
+  const int zo0 = zt * g.zseg;
+  const int zo1 = min(zo0 + g.zseg, g.Do);
+  // Input planes zi0, zi0 + 1, ... feed outputs zo0 .. zo1 - 1.
+  const int zi0 = zo0 * STRIDE - 1;
+  const int np = STRIDE == 1 ? zo1 - zo0 + 2 : 2 * (zo1 - zo0) + 1;
+
+  auto fetch = [&](int i) {  // plane i of the walk into its ring slot, one group
+    const int zi = zi0 + i;
+    if (i < np && zi >= 0 && zi < g.D)
+      copy_slab<T, STRIDE, VECIO>(x, ring + (i % F::kStages) * F::SLAB, g, b, zi, yi0, xi0, c0, tid);
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < F::kStages - 1; ++i) fetch(i);
+
+  for (int i = tid; i < 27 * F::CT; i += F::THREADS) {
+    const int t = i / F::CT, cc = c0 + i % F::CT;
+    w_s[i] = cc < g.C ? w27[static_cast<int64_t>(FLIP ? 26 - t : t) * g.C + cc] : 0.f;
+  }
+  __syncthreads();
+  float wr[27][VEC];
+#pragma unroll
+  for (int t = 0; t < 27; ++t)
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) wr[t][k] = w_s[t * F::CT + cl * VEC + k];
+
+  const bool active = c < g.C && yo < g.Ho;
+  const int64_t soD = static_cast<int64_t>(g.Ho) * g.Wo * g.C;
+  T* yb = y + b * g.Do * soD + (static_cast<int64_t>(yo) * g.Wo + xo0) * g.C + c;
+  auto store_plane = [&](int zo, const float (&a)[NX][VEC]) {
+    if (!active) return;
+#pragma unroll
+    for (int k = 0; k < NX; ++k)
+      if (xo0 + k < g.Wo) store_out<T, VEC, VECIO>(yb + zo * soD + k * g.C, a[k], c, g.C);
+  };
+
+  // Stride 1: at input plane zi, a0 is output zi-1 (its taps dz=2), a1 is
+  // output zi (dz=1), a2 output zi+1 (dz=0); output zi-1 is then complete.
+  // Stride 2: plane 2zo is dz=1 of output zo (acc); plane 2zo+1 is dz=2 of
+  // zo, after which zo is complete, and dz=0 of zo+1 (carry).
+  float a0[NX][VEC] = {}, a1[NX][VEC] = {}, a2[NX][VEC] = {};
+  for (int i = 0; i < np; ++i) {
+    cp_async_wait<F::kStages - 2>();
+    __syncthreads();  // plane i has landed, and every thread is done with plane i-1
+    fetch(i + F::kStages - 1);
+    const int zi = zi0 + i;
+    const T* slab = ring + (i % F::kStages) * F::SLAB + cl * VEC;
+    if (zi >= 0 && zi < g.D) {
+      if constexpr (STRIDE == 1) {
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy) {
+          const int r = ty + dy;
+          const int f = slot_flip<1>(r);
+          const T* row = slab + (r * F::RS + xg * NX) * F::CT;
+          float v[NX + 2][VEC];
+#pragma unroll
+          for (int j = 0; j < NX + 2; ++j) load(row + (j + ((j & 1) ? -f : f)) * F::CT, v[j]);
+#pragma unroll
+          for (int k = 0; k < NX; ++k)
+#pragma unroll
+            for (int dx = 0; dx < 3; ++dx) {
+              const int t = dy * 3 + dx;
+              fma_taps(a2[k], v[k + dx], wr[t]);
+              fma_taps(a1[k], v[k + dx], wr[9 + t]);
+              fma_taps(a0[k], v[k + dx], wr[18 + t]);
+            }
+        }
+      } else {
+        const bool mid_plane = (i & 1) != 0;  // zi = 2zo: dz=1 of zo
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy) {
+          const int r = 2 * ty + dy;
+          const int f = slot_flip<2>(r);
+          const T* row = slab + (r * F::RS + 2 * xg * NX) * F::CT;
+          float v[2 * NX + 1][VEC];
+#pragma unroll
+          for (int j = 0; j < 2 * NX + 1; ++j) load(row + (j + ((j & 1) ? -f : f)) * F::CT, v[j]);
+          if (mid_plane) {
+#pragma unroll
+            for (int k = 0; k < NX; ++k)
+#pragma unroll
+              for (int dx = 0; dx < 3; ++dx) fma_taps(a1[k], v[2 * k + dx], wr[9 + dy * 3 + dx]);
+          } else {
+#pragma unroll
+            for (int k = 0; k < NX; ++k)
+#pragma unroll
+              for (int dx = 0; dx < 3; ++dx) {
+                const int t = dy * 3 + dx;
+                fma_taps(a1[k], v[2 * k + dx], wr[18 + t]);
+                fma_taps(a2[k], v[2 * k + dx], wr[t]);
+              }
+          }
+        }
+      }
+    }
+    if constexpr (STRIDE == 1) {
+      if (i >= 2) store_plane(zi - 1, a0);
+#pragma unroll
+      for (int k = 0; k < NX; ++k)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          a0[k][e] = a1[k][e];
+          a1[k][e] = a2[k][e];
+          a2[k][e] = 0.f;
+        }
+    } else if ((i & 1) == 0) {
+      if (i > 0) store_plane(zo0 - 1 + i / 2, a1);
+#pragma unroll
+      for (int k = 0; k < NX; ++k)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          a1[k][e] = a2[k][e];
+          a2[k][e] = 0.f;
+        }
+    }
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+}
+
+template <typename T, int STRIDE, bool FLIP, bool VECIO>
+cudaError_t launch_fwd(const void* x, const float* w27, void* y, int B, int D, int H, int W,
+                       int C, cudaStream_t stream) {
+  using F = FwdTile<T, STRIDE>;
+  FwdGeometry g;
+  g.D = D; g.H = H; g.W = W; g.C = C;
+  g.Do = (D + STRIDE - 1) / STRIDE;
+  g.Ho = (H + STRIDE - 1) / STRIDE;
+  g.Wo = (W + STRIDE - 1) / STRIDE;
+  g.n_ct = (C + F::CT - 1) / F::CT;
+  g.n_xt = (g.Wo + F::TX - 1) / F::TX;
+  g.n_yt = (g.Ho + F::TY - 1) / F::TY;
+  g.n_zt = (g.Do + kZSeg - 1) / kZSeg;
+  g.zseg = g.n_zt > 0 ? (g.Do + g.n_zt - 1) / g.n_zt : 1;  // even segments
+  const int64_t blocks = static_cast<int64_t>(B) * g.n_zt * g.n_yt * g.n_xt * g.n_ct;
+  if (blocks == 0) return cudaSuccess;
+  if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
+  const size_t smem = F::kStages * F::SLAB * sizeof(T) + 27 * F::CT * sizeof(float);
+  auto kernel = dw3d_fwd_kernel<T, STRIDE, FLIP, VECIO>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<static_cast<unsigned>(blocks), F::THREADS, smem, stream>>>(
+      static_cast<const T*>(x), w27, static_cast<T*>(y), g);
+  return cudaGetLastError();
+}
+
+// x, y 16-byte aligned with a whole number of 16-byte pieces a voxel: the
+// 16-byte copies and vector stores; else element copies.
+template <typename T>
+bool fwd_vecio(const void* x, const void* y, int C) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y);
+  return a % 16 == 0 && (static_cast<size_t>(C) * sizeof(T)) % 16 == 0;
+}
+
+template <typename T, int STRIDE, bool FLIP>
+cudaError_t launch_fwd_io(const void* x, const float* w27, void* y, int B, int D, int H, int W,
+                          int C, cudaStream_t stream) {
+  if (fwd_vecio<T>(x, y, C))
+    return launch_fwd<T, STRIDE, FLIP, true>(x, w27, y, B, D, H, W, C, stream);
+  return launch_fwd<T, STRIDE, FLIP, false>(x, w27, y, B, D, H, W, C, stream);
+}
+
+// ------------------------------------------------------------------ backward
+
 struct Geometry {
   int D, H, W, C;      // input extents
   int Do, Ho, Wo;      // output extents
@@ -96,136 +410,6 @@ __device__ __forceinline__ bool load_tap(const T* __restrict__ x, int64_t plane,
   return true;
 }
 
-template <int VEC>
-__device__ __forceinline__ void fma_taps(float (&acc)[VEC], const float (&v)[VEC],
-                                         const float (&w)[VEC]) {
-#pragma unroll
-  for (int k = 0; k < VEC; ++k) acc[k] = fmaf(v[k], w[k], acc[k]);
-}
-
-// FLIP reads tap 26 - t where the forward reads tap t: the stride-1 input
-// gradient (conv3d_pallas.py:264-269).
-template <typename T, int VEC, int STRIDE, bool FLIP>
-__global__ void __launch_bounds__(kThreads)
-dw3d_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w27, T* __restrict__ y,
-                Geometry g) {
-  extern __shared__ float w_s[];  // (27, blockDim.x * VEC)
-  const int ctw = blockDim.x * VEC;  // channels in a full channel tile
-
-  int64_t bid = blockIdx.x;
-  const int ct = static_cast<int>(bid % g.n_ct); bid /= g.n_ct;
-  const int xt = static_cast<int>(bid % g.n_xt); bid /= g.n_xt;
-  const int yt = static_cast<int>(bid % g.n_yt); bid /= g.n_yt;
-  const int zt = static_cast<int>(bid % g.n_zt); bid /= g.n_zt;
-  const int64_t b = bid;
-
-  const int c0 = ct * ctw;
-  const int nc = min(ctw, g.C - c0);
-  const int tid = threadIdx.x + blockDim.x * (threadIdx.y + blockDim.y * threadIdx.z);
-  const int nthr = blockDim.x * blockDim.y * blockDim.z;
-  for (int i = tid; i < 27 * nc; i += nthr) {
-    const int t = i / nc, c = i - t * nc;
-    w_s[t * ctw + c] = w27[static_cast<int64_t>(FLIP ? 26 - t : t) * g.C + c0 + c];
-  }
-  __syncthreads();
-
-  const int c = c0 + threadIdx.x * VEC;
-  const int xo = xt * blockDim.y + threadIdx.y;
-  const int yo = yt * blockDim.z + threadIdx.z;
-  if (c >= g.C || xo >= g.Wo || yo >= g.Ho) return;
-
-  float wr[27][VEC];
-#pragma unroll
-  for (int t = 0; t < 27; ++t)
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) wr[t][k] = w_s[t * ctw + threadIdx.x * VEC + k];
-
-  Taps tp;
-  tp.sW = g.C;
-  tp.sH = static_cast<int64_t>(g.W) * g.C;
-  const int64_t sD = static_cast<int64_t>(g.H) * tp.sH;
-  const int yi = yo * STRIDE - 1, xi = xo * STRIDE - 1;
-#pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    tp.yok[d] = yi + d >= 0 && yi + d < g.H;
-    tp.xok[d] = xi + d >= 0 && xi + d < g.W;
-  }
-  // Offset of tap (dy, dx) = (0, 0) in plane 0 of batch b; may be negative,
-  // but only offsets of taps inside the volume are ever dereferenced.
-  const int64_t base = b * g.D * sD + yi * tp.sH + xi * tp.sW + c;
-  const int64_t soD = static_cast<int64_t>(g.Ho) * g.Wo * g.C;
-  T* yb = y + b * g.Do * soD + (static_cast<int64_t>(yo) * g.Wo + xo) * g.C + c;
-
-  const int zo0 = zt * kZSeg;
-  const int zo1 = min(zo0 + kZSeg, g.Do);
-
-  if constexpr (STRIDE == 1) {
-    // At input plane zi: a0 is output zi-1 (its taps dz=2), a1 is output zi
-    // (dz=1), a2 is output zi+1 (dz=0). Output zi-1 is then complete.
-    float a0[VEC] = {}, a1[VEC] = {}, a2[VEC] = {};
-    for (int zi = zo0 - 1; zi <= zo1; ++zi) {
-      if (zi >= 0 && zi < g.D) {
-        const int64_t plane = base + zi * sD;
-#pragma unroll
-        for (int t = 0; t < 9; ++t) {
-          float v[VEC];
-          if (load_tap(x, plane, t, tp, v)) {
-            fma_taps(a2, v, wr[t]);
-            fma_taps(a1, v, wr[9 + t]);
-            fma_taps(a0, v, wr[18 + t]);
-          }
-        }
-      }
-      if (zi - 1 >= zo0) store(yb + (zi - 1) * soD, a0);
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) {
-        a0[k] = a1[k];
-        a1[k] = a2[k];
-        a2[k] = 0.f;
-      }
-    }
-  } else {
-    // Output zo reads planes 2zo-1 (dz=0), 2zo (dz=1), 2zo+1 (dz=2); plane
-    // 2zo+1 is also dz=0 of output zo+1, carried over in `carry`.
-    float carry[VEC] = {};
-    const int zfirst = 2 * zo0 - 1;
-    if (zfirst >= 0) {
-      const int64_t plane = base + zfirst * sD;
-#pragma unroll
-      for (int t = 0; t < 9; ++t) {
-        float v[VEC];
-        if (load_tap(x, plane, t, tp, v)) fma_taps(carry, v, wr[t]);
-      }
-    }
-    for (int zo = zo0; zo < zo1; ++zo) {
-      float acc[VEC];
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) {
-        acc[k] = carry[k];
-        carry[k] = 0.f;
-      }
-      const int64_t mid = base + (2 * zo) * sD;  // 2zo < D since zo < ceil(D/2)
-#pragma unroll
-      for (int t = 0; t < 9; ++t) {
-        float v[VEC];
-        if (load_tap(x, mid, t, tp, v)) fma_taps(acc, v, wr[9 + t]);
-      }
-      if (2 * zo + 1 < g.D) {
-        const int64_t hi = mid + sD;
-#pragma unroll
-        for (int t = 0; t < 9; ++t) {
-          float v[VEC];
-          if (load_tap(x, hi, t, tp, v)) {
-            fma_taps(acc, v, wr[18 + t]);
-            fma_taps(carry, v, wr[t]);
-          }
-        }
-      }
-      store(yb + zo * soD, acc);
-    }
-  }
-}
-
 // Channel tiles of at most 64 vectors, split evenly, and a near-square
 // TY x TX tile of (yo, xo) for the rest of the block's threads.
 template <int VEC>
@@ -240,31 +424,6 @@ void tile_block(Geometry& g, int& cvt, int& tx, int& ty, int Ho, int Wo) {
   tx = tx < 1 ? 1 : (tx > Wo ? Wo : tx);
 }
 
-template <typename T, int VEC, int STRIDE, bool FLIP>
-cudaError_t launch(const void* x, const float* w27, void* y, int B, int D, int H, int W,
-                   int C, cudaStream_t stream) {
-  Geometry g;
-  g.D = D; g.H = H; g.W = W; g.C = C;
-  g.Do = (D + STRIDE - 1) / STRIDE;
-  g.Ho = (H + STRIDE - 1) / STRIDE;
-  g.Wo = (W + STRIDE - 1) / STRIDE;
-  int cvt, tx, ty;
-  tile_block<VEC>(g, cvt, tx, ty, g.Ho, g.Wo);
-  g.n_xt = (g.Wo + tx - 1) / tx;
-  g.n_yt = (g.Ho + ty - 1) / ty;
-  g.n_zt = (g.Do + kZSeg - 1) / kZSeg;
-  const int64_t blocks = static_cast<int64_t>(B) * g.n_zt * g.n_yt * g.n_xt * g.n_ct;
-  if (blocks == 0) return cudaSuccess;
-  if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
-  const dim3 block(cvt, tx, ty);
-  const size_t smem = 27 * static_cast<size_t>(cvt) * VEC * sizeof(float);
-  dw3d_fwd_kernel<T, VEC, STRIDE, FLIP><<<static_cast<unsigned>(blocks), block, smem, stream>>>(
-      static_cast<const T*>(x), w27, static_cast<T*>(y), g);
-  return cudaGetLastError();
-}
-
-// ------------------------------------------------------------------ backward
-//
 // Input gradient, stride 2, in the transposed form of the forward: input
 // voxel i of an axis receives output o = (i + 1 - d) / 2 through tap d
 // wherever i + 1 - d is even and 0 <= o < ceil(n / 2): tap d = 1 at even i,
@@ -562,12 +721,14 @@ extern "C" int dw3d_fwd(const void* x, const void* w27, void* y, int is_bf16, in
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* w = static_cast<const float*>(w27);
   (void)cudaGetLastError();  // report this launch's error, not an earlier one
-  return static_cast<int>(by_type(is_bf16, C, alignment(x, y), [&](auto tv) {
-    using TV = decltype(tv);
-    if (stride == 1) return launch<typename TV::T, TV::VEC, 1, false>(x, w, y, B, D, H, W, C, s);
-    if (stride == 2) return launch<typename TV::T, TV::VEC, 2, false>(x, w, y, B, D, H, W, C, s);
-    return cudaErrorInvalidValue;
-  }));
+  cudaError_t err = cudaErrorInvalidValue;
+  if (stride == 1)
+    err = is_bf16 ? launch_fwd_io<__nv_bfloat16, 1, false>(x, w, y, B, D, H, W, C, s)
+                  : launch_fwd_io<float, 1, false>(x, w, y, B, D, H, W, C, s);
+  else if (stride == 2)
+    err = is_bf16 ? launch_fwd_io<__nv_bfloat16, 2, false>(x, w, y, B, D, H, W, C, s)
+                  : launch_fwd_io<float, 2, false>(x, w, y, B, D, H, W, C, s);
+  return static_cast<int>(err);
 }
 
 // The input gradient of dw3d_fwd. gy: the cotangent of y; gx: (B, D, H, W,
@@ -578,9 +739,12 @@ extern "C" int dw3d_grad_x(const void* gy, const void* w27, void* gx, int is_bf1
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* w = static_cast<const float*>(w27);
   (void)cudaGetLastError();
+  if (stride == 1)
+    return static_cast<int>(
+        is_bf16 ? launch_fwd_io<__nv_bfloat16, 1, true>(gy, w, gx, B, D, H, W, C, s)
+                : launch_fwd_io<float, 1, true>(gy, w, gx, B, D, H, W, C, s));
   return static_cast<int>(by_type(is_bf16, C, alignment(gy, gx), [&](auto tv) {
     using TV = decltype(tv);
-    if (stride == 1) return launch<typename TV::T, TV::VEC, 1, true>(gy, w, gx, B, D, H, W, C, s);
     if (stride == 2) return launch_gx2<typename TV::T, TV::VEC>(gy, w, gx, B, D, H, W, C, s);
     return cudaErrorInvalidValue;
   }));

@@ -211,16 +211,20 @@ def test_staple_matches_published_equations_fixed_point():
         assert cons[j] == int(_GOLDEN_POSTERIOR[pat] > 0.5)
 
 
-def test_staple_matches_native_cpp():
+def test_staple_matches_native_cpp(monkeypatch):
     """The port against `ds_staple_em` (the C++ EM in double precision), at
     `tests/test_consensus.py:62-68`'s tolerances, through the port's own
     binding and the JAX test's."""
-    from deep_staple_tpu.consensus.native_staple import staple_consensus_native as jax_native
+    import deep_staple_tpu.consensus.native_staple as jax_binding
     from deep_staple_tpu.data.native_io import _find_lib
     from deep_staple_torch.consensus import native_staple
     from deep_staple_torch.consensus.staple import staple_consensus
 
     _find_lib()  # the JAX package builds native/ when the library is missing
+    # `tests/test_consensus.py` asks the JAX binding at collection time, which
+    # may be before the build above: its cached "not found" would then stand.
+    monkeypatch.setattr(jax_binding, "_SEARCHED", False)
+    monkeypatch.setattr(jax_binding, "_LIB", None)
     if not native_staple.native_staple_available():
         pytest.skip("native library not built (native/build.sh)")
     raters = _consensus_raters(np.random.RandomState(0), n_good=3, n_bad=2)
@@ -229,7 +233,7 @@ def test_staple_matches_native_cpp():
     np.testing.assert_array_equal(res.consensus.numpy(), c_cons)
     np.testing.assert_allclose(res.sensitivities.numpy(), c_p, rtol=1e-3, atol=1e-4)
     np.testing.assert_allclose(res.specificities.numpy(), c_q, rtol=1e-3, atol=1e-4)
-    j_cons, j_p, j_q, j_iters = jax_native(raters, max_iterations=50)
+    j_cons, j_p, j_q, j_iters = jax_binding.staple_consensus_native(raters, max_iterations=50)
     assert c_iters == j_iters and np.array_equal(c_p, j_p) and np.array_equal(c_cons, j_cons)
 
 
