@@ -66,8 +66,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // target threads per block of the backward kernels
-constexpr int kZSeg = 16;      // most planes a block (a thread) walks along z
+constexpr int kThreads = 256;  // target threads per block of dw3d_gx2_kernel
+constexpr int kZSeg = 16;      // most planes a forward or dw3d_gx2_kernel block walks along z
 
 __device__ __forceinline__ void load(const float* p, float (&v)[4]) {
   const float4 t = *reinterpret_cast<const float4*>(p);
@@ -134,7 +134,7 @@ struct FwdTile {
   static_assert(NX % 2 == 0 && RS % 2 == 0, "the swizzle pairs voxel slots 2k, 2k+1");
 };
 
-struct FwdGeometry {
+struct TileGeometry {
   int D, H, W, C;              // input extents
   int Do, Ho, Wo;              // output extents
   int n_ct, n_xt, n_yt, n_zt;  // tiles along C, W, H, and z segments
@@ -149,32 +149,43 @@ __device__ __forceinline__ int slot_flip(int r) {
   return (r >> (STRIDE - 1)) & 1;
 }
 
-// Copies input plane zi of the block's slab into `slab`. VECIO: 16-byte
-// cp.async copies (C * sizeof(T) a multiple of 16 and x 16-byte aligned);
-// else one element a copy, through registers. Out-of-volume voxels and
-// channels past C are written as zeros.
-template <typename T, int STRIDE, bool VECIO>
-__device__ __forceinline__ void copy_slab(const T* __restrict__ x, T* slab, const FwdGeometry& g,
-                                          int64_t b, int zi, int yi0, int xi0, int c0, int tid) {
-  using F = FwdTile<T, STRIDE>;
+// Copies the ROWS x RS voxels from (y0, x0) of plane z of the (B, D, H, W, C)
+// tensor src, CT channels from c0, into `slab`, by THREADS threads. VECIO:
+// 16-byte cp.async copies (C * sizeof(T) a multiple of 16 and src 16-byte
+// aligned); else one element a copy, through registers. Voxels outside the
+// tensor and channels past C are written as zeros. Slab row r holds its
+// voxel slots swizzled by slot_flip<FLIP>(r).
+// ROLLED keeps the loop rolled, so that the compiler does not hold every
+// copy's address across the caller's loop.
+template <typename T, int ROWS, int RS, int CT, int THREADS, int FLIP, bool VECIO,
+          bool ROLLED = false>
+__device__ __forceinline__ void copy_slab(const T* __restrict__ src, T* slab, int D, int H, int W,
+                                          int C, int64_t b, int z, int y0, int x0, int c0,
+                                          int tid) {
   constexpr int EPC = VECIO ? 16 / sizeof(T) : 1;  // elements a copy
-  constexpr int QV = F::CT / EPC;                  // copies a voxel
-  constexpr int N = F::ROWS * F::RS * QV;
-  const int64_t plane = (b * g.D + zi) * static_cast<int64_t>(g.H);
-  for (int i = tid; i < N; i += F::THREADS) {
+  constexpr int QV = CT / EPC;                     // copies a voxel
+  constexpr int N = ROWS * RS * QV;
+  const int64_t plane = (b * D + z) * static_cast<int64_t>(H);
+  auto copy = [&](int i) {
     const int q = i % QV;
     const int v = i / QV;
-    const int xs = v % F::RS, r = v / F::RS;
-    const int yi = yi0 + r, xi = xi0 + xs, c = c0 + q * EPC;
-    const bool ok = yi >= 0 && yi < g.H && xi >= 0 && xi < g.W && c < g.C;
-    const int64_t off = ok ? ((plane + yi) * g.W + xi) * g.C + c : 0;
-    T* dst = slab + (r * F::RS + (xs ^ slot_flip<STRIDE>(r))) * F::CT + q * EPC;
+    const int xs = v % RS, r = v / RS;
+    const int yi = y0 + r, xi = x0 + xs, c = c0 + q * EPC;
+    const bool ok = yi >= 0 && yi < H && xi >= 0 && xi < W && c < C;
+    const int64_t off = ok ? ((plane + yi) * W + xi) * C + c : 0;
+    T* dst = slab + (r * RS + (xs ^ slot_flip<FLIP>(r))) * CT + q * EPC;
     if constexpr (VECIO) {
-      cp_async16(dst, x + off, ok ? 16 : 0);
+      cp_async16(dst, src + off, ok ? 16 : 0);
     } else {
       using Bits = std::conditional_t<sizeof(T) == 4, uint32_t, uint16_t>;
-      *reinterpret_cast<Bits*>(dst) = ok ? reinterpret_cast<const Bits*>(x)[off] : Bits(0);
+      *reinterpret_cast<Bits*>(dst) = ok ? reinterpret_cast<const Bits*>(src)[off] : Bits(0);
     }
+  };
+  if constexpr (ROLLED) {
+#pragma unroll 1
+    for (int i = tid; i < N; i += THREADS) copy(i);
+  } else {
+    for (int i = tid; i < N; i += THREADS) copy(i);
   }
 }
 
@@ -200,7 +211,7 @@ __device__ __forceinline__ void store_out(T* p, const float (&v)[VEC], int c, in
 template <typename T, int STRIDE, bool FLIP, bool VECIO>
 __global__ void __launch_bounds__(FwdTile<T, STRIDE>::THREADS, FwdTile<T, STRIDE>::MIN_BLOCKS)
 dw3d_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w27, T* __restrict__ y,
-                FwdGeometry g) {
+                TileGeometry g) {
   using F = FwdTile<T, STRIDE>;
   constexpr int VEC = F::VEC, NX = F::NX;
   extern __shared__ __align__(16) unsigned char fwd_smem[];
@@ -232,7 +243,8 @@ dw3d_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w27, T* __res
   auto fetch = [&](int i) {  // plane i of the walk into its ring slot, one group
     const int zi = zi0 + i;
     if (i < np && zi >= 0 && zi < g.D)
-      copy_slab<T, STRIDE, VECIO>(x, ring + (i % F::kStages) * F::SLAB, g, b, zi, yi0, xi0, c0, tid);
+      copy_slab<T, F::ROWS, F::RS, F::CT, F::THREADS, STRIDE, VECIO>(
+          x, ring + (i % F::kStages) * F::SLAB, g.D, g.H, g.W, g.C, b, zi, yi0, xi0, c0, tid);
     cp_async_commit();
   };
 #pragma unroll
@@ -346,7 +358,7 @@ template <typename T, int STRIDE, bool FLIP, bool VECIO>
 cudaError_t launch_fwd(const void* x, const float* w27, void* y, int B, int D, int H, int W,
                        int C, cudaStream_t stream) {
   using F = FwdTile<T, STRIDE>;
-  FwdGeometry g;
+  TileGeometry g;
   g.D = D; g.H = H; g.W = W; g.C = C;
   g.Do = (D + STRIDE - 1) / STRIDE;
   g.Ho = (H + STRIDE - 1) / STRIDE;
@@ -372,7 +384,7 @@ cudaError_t launch_fwd(const void* x, const float* w27, void* y, int B, int D, i
 // x, y 16-byte aligned with a whole number of 16-byte pieces a voxel: the
 // 16-byte copies and vector stores; else element copies.
 template <typename T>
-bool fwd_vecio(const void* x, const void* y, int C) {
+bool use_vecio(const void* x, const void* y, int C) {
   const uintptr_t a = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y);
   return a % 16 == 0 && (static_cast<size_t>(C) * sizeof(T)) % 16 == 0;
 }
@@ -380,7 +392,7 @@ bool fwd_vecio(const void* x, const void* y, int C) {
 template <typename T, int STRIDE, bool FLIP>
 cudaError_t launch_fwd_io(const void* x, const float* w27, void* y, int B, int D, int H, int W,
                           int C, cudaStream_t stream) {
-  if (fwd_vecio<T>(x, y, C))
+  if (use_vecio<T>(x, y, C))
     return launch_fwd<T, STRIDE, FLIP, true>(x, w27, y, B, D, H, W, C, stream);
   return launch_fwd<T, STRIDE, FLIP, false>(x, w27, y, B, D, H, W, C, stream);
 }
@@ -392,23 +404,6 @@ struct Geometry {
   int Do, Ho, Wo;      // output extents
   int n_ct, n_xt, n_yt, n_zt;  // tiles along C, W, H, and z segments
 };
-
-// Where the 9 (dy, dx) taps of one thread lie inside an input plane.
-struct Taps {
-  int64_t sH, sW;
-  bool yok[3], xok[3];  // false: the tap falls in the zero padding
-};
-
-// Loads tap t = dy*3 + dx of the plane starting at offset `plane`; false
-// (and no load) where the tap lies in the zero padding.
-template <typename T, int VEC>
-__device__ __forceinline__ bool load_tap(const T* __restrict__ x, int64_t plane, int t,
-                                         const Taps& tp, float (&v)[VEC]) {
-  const int dy = t / 3, dx = t % 3;
-  if (!(tp.yok[dy] && tp.xok[dx])) return false;
-  load(x + (plane + dy * tp.sH + dx * tp.sW), v);
-  return true;
-}
 
 // Channel tiles of at most 64 vectors, split evenly, and a near-square
 // TY x TX tile of (yo, xo) for the rest of the block's threads.
@@ -507,135 +502,6 @@ dw3d_gx2_kernel(const T* __restrict__ gy, const float* __restrict__ w27, T* __re
   }
 }
 
-// Weight gradient: gw[t, c] = sum over (b, o) of x[b, s*o + tap t - 1, c] *
-// gy[b, o, c], the 27 reductions of conv3d.py:92-105 (replaces
-// conv3d_pallas.py::_gw_kernel, :173-202, launched by _dw_pallas_gw_impl
-// :205-241). The TPU kernel keeps one (27, ct) block resident across a grid
-// that runs in order; here blocks run in parallel, so the sum is taken in
-// two passes and never with atomics, whose order would change from run to
-// run:
-//  1. dw3d_gw_kernel: block (ct, j) covers one channel tile and the output
-//     columns (b, yo, xo) = j * nsp + ty + k * gridDim.y * nsp. A thread owns
-//     VEC channels of a column and walks it along z with 27 x VEC float32
-//     accumulators in registers. At stride 1 it reads each input plane once
-//     for its 9 (dy, dx) taps and pairs it with the three cotangent planes it
-//     feeds (zo = zi + 1, zi, zi - 1), held in a rolling window. The block's
-//     threads are then summed over ty in a fixed order into partial[j].
-//  2. dw3d_gw_reduce_kernel: gw = sum over j of partial[j], in order.
-// float32 accumulation in both dtypes (conv3d.py:100-104: about 3M bf16
-// products per channel would cancel the mantissa in bf16). Bound: the bytes
-// of x and gy read.
-struct GwGeometry {
-  int D, H, W, C;
-  int Do, Ho, Wo;
-  int64_t cols;  // B * Ho * Wo
-};
-
-template <typename T, int VEC, int STRIDE>
-__global__ void __launch_bounds__(kThreads)
-dw3d_gw_kernel(const T* __restrict__ x, const T* __restrict__ gy, float* __restrict__ partial,
-               GwGeometry g) {
-  extern __shared__ float red[];  // (blockDim.y, blockDim.x * VEC)
-  const int ctw = blockDim.x * VEC;
-  const int c = blockIdx.x * ctw + threadIdx.x * VEC;
-  const bool active = c < g.C;
-
-  float acc[27][VEC];
-#pragma unroll
-  for (int t = 0; t < 27; ++t)
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) acc[t][k] = 0.f;
-
-  if (active) {
-    Taps tp;
-    tp.sW = g.C;
-    tp.sH = static_cast<int64_t>(g.W) * g.C;
-    const int64_t sD = static_cast<int64_t>(g.H) * tp.sH;
-    const int64_t soD = static_cast<int64_t>(g.Ho) * g.Wo * g.C;
-    const int64_t step = static_cast<int64_t>(gridDim.y) * blockDim.y;
-    for (int64_t col = static_cast<int64_t>(blockIdx.y) * blockDim.y + threadIdx.y; col < g.cols;
-         col += step) {
-      const int xo = static_cast<int>(col % g.Wo);
-      const int yo = static_cast<int>((col / g.Wo) % g.Ho);
-      const int64_t b = col / (static_cast<int64_t>(g.Wo) * g.Ho);
-      const int yi = yo * STRIDE - 1, xi = xo * STRIDE - 1;
-#pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        tp.yok[d] = yi + d >= 0 && yi + d < g.H;
-        tp.xok[d] = xi + d >= 0 && xi + d < g.W;
-      }
-      const int64_t base = b * g.D * sD + yi * tp.sH + xi * tp.sW + c;
-      const T* gcol = gy + b * g.Do * soD + (static_cast<int64_t>(yo) * g.Wo + xo) * g.C + c;
-      if constexpr (STRIDE == 1) {
-        float gp[VEC] = {}, gc[VEC], gn[VEC] = {};
-        load(gcol, gc);
-        if (g.D > 1) load(gcol + soD, gn);
-        for (int zi = 0; zi < g.D; ++zi) {
-          const int64_t plane = base + zi * sD;
-#pragma unroll
-          for (int t = 0; t < 9; ++t) {
-            float v[VEC];
-            if (load_tap(x, plane, t, tp, v)) {
-              fma_taps(acc[t], v, gn);       // dz = 0 feeds output zi + 1
-              fma_taps(acc[9 + t], v, gc);   // dz = 1 feeds output zi
-              fma_taps(acc[18 + t], v, gp);  // dz = 2 feeds output zi - 1
-            }
-          }
-#pragma unroll
-          for (int k = 0; k < VEC; ++k) {
-            gp[k] = gc[k];
-            gc[k] = gn[k];
-            gn[k] = 0.f;
-          }
-          if (zi + 2 < g.D) load(gcol + (zi + 2) * soD, gn);
-        }
-      } else {
-        for (int zo = 0; zo < g.Do; ++zo) {
-          float gv[VEC];
-          load(gcol + zo * soD, gv);
-#pragma unroll
-          for (int dz = 0; dz < 3; ++dz) {
-            const int zi = 2 * zo + dz - 1;
-            if (zi < 0 || zi >= g.D) continue;
-            const int64_t plane = base + zi * sD;
-#pragma unroll
-            for (int t = 0; t < 9; ++t) {
-              float v[VEC];
-              if (load_tap(x, plane, t, tp, v)) fma_taps(acc[dz * 9 + t], v, gv);
-            }
-          }
-        }
-      }
-    }
-  }
-
-  const int slot = threadIdx.y * ctw + threadIdx.x * VEC;
-#pragma unroll
-  for (int t = 0; t < 27; ++t) {
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) red[slot + k] = acc[t][k];
-    __syncthreads();
-    if (threadIdx.y == 0 && active) {
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) {
-        float s = 0.f;
-        for (int j = 0; j < static_cast<int>(blockDim.y); ++j) s += red[j * ctw + threadIdx.x * VEC + k];
-        partial[(static_cast<int64_t>(blockIdx.y) * 27 + t) * g.C + c + k] = s;
-      }
-    }
-    __syncthreads();
-  }
-}
-
-__global__ void dw3d_gw_reduce_kernel(const float* __restrict__ partial, float* __restrict__ gw,
-                                      int n_part, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int j = 0; j < n_part; ++j) s += partial[static_cast<int64_t>(j) * n + i];
-  gw[i] = s;
-}
-
 template <typename T, int VEC>
 cudaError_t launch_gx2(const void* gy, const float* w27, void* gx, int B, int D, int H, int W,
                        int C, cudaStream_t stream) {
@@ -659,31 +525,322 @@ cudaError_t launch_gx2(const void* gy, const float* w27, void* gx, int B, int D,
   return cudaGetLastError();
 }
 
-template <typename T, int VEC, int STRIDE>
-cudaError_t launch_gw(const void* x, const void* gy, float* partial, float* gw, int n_part,
-                      int B, int D, int H, int W, int C, cudaStream_t stream) {
-  Geometry tg;
-  tg.C = C;
-  int cvt, tx, ty;
-  tile_block<VEC>(tg, cvt, tx, ty, 1, 1);
-  const int nsp = kThreads / cvt > 1 ? kThreads / cvt : 1;
-  GwGeometry g;
+// Weight gradient: gw[t, c] = sum over (b, zo, yo, xo) of
+// x[b, s*zo + dz - 1, s*yo + dy - 1, s*xo + dx - 1, c] * gy[b, zo, yo, xo, c],
+// t = dz*9 + dy*3 + dx, the 27 reductions of conv3d.py:92-105 (replaces
+// conv3d_pallas.py::_gw_kernel, :173-202, launched by _dw_pallas_gw_impl
+// :205-241). float32 accumulation in both dtypes (conv3d.py:100-104: about
+// 3M bf16 products per channel would cancel the mantissa in bf16).
+//
+// What bounds it: bytes. An output voxel of gy costs 27 FMAs against one
+// voxel of x and one of gy read, 6.75 flop/byte in f32 (13.5 in bf16), under
+// the 20 flop/byte ridge; the tensor cores offer nothing, as each channel is
+// its own 27-long dot product. The least time is x and gy read once.
+//
+// What the design does about it (dw3d_gw_kernel, the forward's staging):
+//  * A block owns a 64-byte channel tile (16 f32 or 32 bf16 channels), a
+//    TY x TX tile of (yo, xo) and a segment of at most kGwZSeg output
+//    planes, and walks the input planes that feed them along z. Each step
+//    copies an input plane's slab of ((TY-1)s+3) x (TX s+2) voxels and the
+//    TY x TX cotangent voxels of the output plane that enters there into
+//    one stage of a kStages ring in shared memory (16-byte cp.async, src-size
+//    0 for the zero padding, swizzled voxel slots as in the forward); the
+//    next kStages-1 steps' copies are in flight while one is summed.
+//  * A thread owns 4 bytes of channels (1 f32 or 2 bf16) x NX = 4 adjacent
+//    outputs along x and keeps the cotangent rows of the outputs that the
+//    current input plane feeds in registers: at stride 1 three rows (zi+1,
+//    zi, zi-1 through dz = 0, 1, 2), loading one new row a plane; at stride
+//    2 two. For each dy it reads NX+2 (stride 1) or 2 NX+1 (stride 2)
+//    values of x once and uses each for up to 3 dx taps into every dz; 27
+//    float32 accumulators a channel, in registers (54 a thread in bf16,
+//    whose copy loops stay rolled so that nothing spills).
+//  * The sum has a fixed order, never atomics, so the result repeats bit
+//    for bit: in a block, the two half-warps of a channel lane pair by one
+//    shuffle, then the warps sum in order through shared memory (one
+//    barrier) into one (27, CT) partial a block; dw3d_gw_reduce_kernel then
+//    sums the partials of each output in a fixed tree (32 rows of lanes over
+//    the partials, then the rows in order), reading them from L2.
+// Channel counts whose voxel is not a multiple of 16 bytes, or unaligned
+// tensors, take the same kernel with element copies.
+//
+// What it reached (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py's times
+// phase): 11.3 ms per f32 training step (batch 8, ten calls) against a 6.24
+// ms bound, 11.2 ms in bf16 against 3.12 (the previous design, one thread a
+// column with 27 x 4 accumulators and nine global loads a plane: 62 / 52
+// ms). The sizes came from an A/B of variants: z segments of 64 planes
+// rather than 32 (-1% f32, -3% bf16) or 16 (+6 to 9%); 4 outputs a thread
+// rather than 8 in f32 (the same time, and no spills); 3 stages rather than
+// 4 and TY 8 in bf16 within 1%. As with the forward, f32 and bf16 take about
+// the same time, so the SM's instruction issue bounds it, not the bytes.
+constexpr int kGwZSeg = 64;  // most output planes a weight-gradient block walks
+
+template <typename T, int STRIDE>
+struct GwTile {
+  static constexpr int VEC = 4 / sizeof(T);          // channels a thread
+  static constexpr int CT = 64 / sizeof(T);          // channels a block
+  static constexpr int CL = CT / VEC;                // lanes along C
+  static constexpr int TY = sizeof(T) == 4 ? 8 : 4;
+  static constexpr int TX = STRIDE == 1 && sizeof(T) == 2 ? 16 : 8;
+  static constexpr int NX = 4;                        // outputs a thread along x
+  static constexpr int kStages = STRIDE == 1 ? 4 : 3;
+  // bf16 keeps its copy loops rolled: beside its 54 accumulators, the
+  // hoisted addresses of unrolled copies would spill.
+  static constexpr bool ROLLED = sizeof(T) == 2;
+  static constexpr int THREADS = CL * TY * (TX / NX);
+  static constexpr int WARPS = THREADS / 32;
+  static constexpr int ROWS = (TY - 1) * STRIDE + 3;  // input rows of a slab
+  static constexpr int RS = TX * STRIDE + 2;          // voxel slots a slab row (even)
+  static constexpr int SLAB = ROWS * RS * CT;         // elements of an input slab
+  static constexpr int STAGE = SLAB + TY * TX * CT;   // and of the cotangent tile
+  static constexpr size_t RING_BYTES = static_cast<size_t>(kStages) * STAGE * sizeof(T);
+  static constexpr size_t SUM_BYTES = static_cast<size_t>(WARPS) * 27 * CT * sizeof(float);
+  static constexpr size_t SMEM = RING_BYTES > SUM_BYTES ? RING_BYTES : SUM_BYTES;
+  static constexpr int MIN_BLOCKS = 65536 / (THREADS * 128);  // at most 128 registers a thread
+  static_assert(CL == 16 && TY % 2 == 0, "a warp is two tile rows of 16 channel lanes");
+  static_assert(NX % 2 == 0 && TX % 2 == 0 && RS % 2 == 0, "the swizzle pairs slots 2k, 2k+1");
+};
+
+template <typename T, int STRIDE>
+TileGeometry gw_geometry(int D, int H, int W, int C) {
+  using G = GwTile<T, STRIDE>;
+  TileGeometry g;
   g.D = D; g.H = H; g.W = W; g.C = C;
   g.Do = (D + STRIDE - 1) / STRIDE;
   g.Ho = (H + STRIDE - 1) / STRIDE;
   g.Wo = (W + STRIDE - 1) / STRIDE;
-  g.cols = static_cast<int64_t>(B) * g.Ho * g.Wo;
-  if (n_part < 1 || n_part > 65535) return cudaErrorInvalidValue;
-  const dim3 grid(tg.n_ct, n_part);
-  const dim3 block(cvt, nsp);
-  const size_t smem = static_cast<size_t>(nsp) * cvt * VEC * sizeof(float);
-  dw3d_gw_kernel<T, VEC, STRIDE><<<grid, block, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(gy), partial, g);
-  cudaError_t err = cudaGetLastError();
+  g.n_ct = (C + G::CT - 1) / G::CT;
+  g.n_xt = (g.Wo + G::TX - 1) / G::TX;
+  g.n_yt = (g.Ho + G::TY - 1) / G::TY;
+  g.n_zt = (g.Do + kGwZSeg - 1) / kGwZSeg;
+  g.zseg = g.n_zt > 0 ? (g.Do + g.n_zt - 1) / g.n_zt : 1;  // even segments
+  return g;
+}
+
+// Block (ct, part) writes partial[part][t][c] for its CT channels, part =
+// ((b * n_zt + zt) * n_yt + yt) * n_xt + xt.
+template <typename T, int STRIDE, bool VECIO>
+__global__ void __launch_bounds__(GwTile<T, STRIDE>::THREADS, GwTile<T, STRIDE>::MIN_BLOCKS)
+dw3d_gw_kernel(const T* __restrict__ x, const T* __restrict__ gy, float* __restrict__ partial,
+               TileGeometry g) {
+  using G = GwTile<T, STRIDE>;
+  constexpr int VEC = G::VEC, NX = G::NX;
+  extern __shared__ __align__(16) unsigned char gw_smem[];
+  T* ring = reinterpret_cast<T*>(gw_smem);  // kStages x (input slab, cotangent tile)
+
+  const int ct = static_cast<int>(blockIdx.x % g.n_ct);
+  const int64_t part = blockIdx.x / g.n_ct;
+  int64_t bid = part;
+  const int xt = static_cast<int>(bid % g.n_xt); bid /= g.n_xt;
+  const int yt = static_cast<int>(bid % g.n_yt); bid /= g.n_yt;
+  const int zt = static_cast<int>(bid % g.n_zt); bid /= g.n_zt;
+  const int64_t b = bid;
+
+  const int tid = threadIdx.x;
+  const int cl = tid % G::CL;             // lane along C
+  const int ty = (tid / G::CL) % G::TY;   // output row in the tile
+  const int xg = tid / (G::CL * G::TY);   // group of NX outputs along x
+  const int c0 = ct * G::CT;
+  const int yo0 = yt * G::TY, xo0 = xt * G::TX;
+  const int yi0 = yo0 * STRIDE - 1, xi0 = xo0 * STRIDE - 1;
+  const int zo0 = zt * g.zseg;
+  const int zo1 = min(zo0 + g.zseg, g.Do);
+  // Input planes zi0, zi0 + 1, ... feed outputs zo0 .. zo1 - 1; step i
+  // brings in output zo0 + i (stride 1) or, at even i, zo0 + i / 2 (stride
+  // 2), whose rows the thread keeps; -1 where no output of the segment enters.
+  const int zi0 = zo0 * STRIDE - 1;
+  const int np = STRIDE == 1 ? zo1 - zo0 + 2 : 2 * (zo1 - zo0) + 1;
+  auto entering = [&](int i) {
+    const int zo = STRIDE == 1 ? zo0 + i : ((i & 1) ? zo1 : zo0 + i / 2);
+    return zo < zo1 ? zo : -1;
+  };
+
+  auto fetch = [&](int i) {  // step i's input plane and cotangent tile into its stage, one group
+    if (i < np) {
+      T* stage = ring + (i % G::kStages) * G::STAGE;
+      const int zi = zi0 + i;
+      if (zi >= 0 && zi < g.D)
+        copy_slab<T, G::ROWS, G::RS, G::CT, G::THREADS, STRIDE, VECIO, G::ROLLED>(
+            x, stage, g.D, g.H, g.W, g.C, b, zi, yi0, xi0, c0, tid);
+      const int zo = entering(i);
+      if (zo >= 0)
+        copy_slab<T, G::TY, G::TX, G::CT, G::THREADS, 1, VECIO, G::ROLLED>(
+            gy, stage + G::SLAB, g.Do, g.Ho, g.Wo, g.C, b, zo, yo0, xo0, c0, tid);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < G::kStages - 1; ++i) fetch(i);
+
+  float acc[27][VEC] = {};
+  // Cotangent rows (NX outputs of this thread) of the outputs the current
+  // input plane feeds. Stride 1: gn = zi + 1 (dz 0), gc = zi (dz 1), gp =
+  // zi - 1 (dz 2). Stride 2: gn = (zi + 1) / 2 (dz 0 at odd zi), gc = the
+  // output whose dz 1 (even zi) or dz 2 (odd zi) plane zi is.
+  float gp[NX][VEC] = {}, gc[NX][VEC] = {}, gn[NX][VEC] = {};
+  const int gf = slot_flip<1>(ty);
+  for (int i = 0; i < np; ++i) {
+    cp_async_wait<G::kStages - 2>();
+    __syncthreads();  // step i has landed, and every thread is done with step i-1
+    fetch(i + G::kStages - 1);
+    const T* stage = ring + (i % G::kStages) * G::STAGE + cl * VEC;
+    if (STRIDE == 1 || (i & 1) == 0) {
+      if (entering(i) >= 0) {
+        const T* row = stage + G::SLAB + (ty * G::TX + xg * NX) * G::CT;
+#pragma unroll
+        for (int k = 0; k < NX; ++k) load(row + (k + ((k & 1) ? -gf : gf)) * G::CT, gn[k]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < NX; ++k)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) gn[k][e] = 0.f;
+      }
+    }
+    const int zi = zi0 + i;
+    if (zi >= 0 && zi < g.D) {
+      if constexpr (STRIDE == 1) {
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy) {
+          const int r = ty + dy;
+          const int f = slot_flip<1>(r);
+          const T* row = stage + (r * G::RS + xg * NX) * G::CT;
+          float v[NX + 2][VEC];
+#pragma unroll
+          for (int j = 0; j < NX + 2; ++j) load(row + (j + ((j & 1) ? -f : f)) * G::CT, v[j]);
+#pragma unroll
+          for (int k = 0; k < NX; ++k)
+#pragma unroll
+            for (int dx = 0; dx < 3; ++dx) {
+              const int t = dy * 3 + dx;
+              fma_taps(acc[t], v[k + dx], gn[k]);
+              fma_taps(acc[9 + t], v[k + dx], gc[k]);
+              fma_taps(acc[18 + t], v[k + dx], gp[k]);
+            }
+        }
+      } else {
+        const bool mid_plane = (i & 1) != 0;  // zi = 2 zo: dz 1 of gc
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy) {
+          const int r = 2 * ty + dy;
+          const int f = slot_flip<2>(r);
+          const T* row = stage + (r * G::RS + 2 * xg * NX) * G::CT;
+          float v[2 * NX + 1][VEC];
+#pragma unroll
+          for (int j = 0; j < 2 * NX + 1; ++j) load(row + (j + ((j & 1) ? -f : f)) * G::CT, v[j]);
+          if (mid_plane) {
+#pragma unroll
+            for (int k = 0; k < NX; ++k)
+#pragma unroll
+              for (int dx = 0; dx < 3; ++dx) fma_taps(acc[9 + dy * 3 + dx], v[2 * k + dx], gc[k]);
+          } else {
+#pragma unroll
+            for (int k = 0; k < NX; ++k)
+#pragma unroll
+              for (int dx = 0; dx < 3; ++dx) {
+                const int t = dy * 3 + dx;
+                fma_taps(acc[t], v[2 * k + dx], gn[k]);
+                fma_taps(acc[18 + t], v[2 * k + dx], gc[k]);
+              }
+          }
+        }
+      }
+    }
+    if (STRIDE == 1 || (i & 1) == 0) {
+#pragma unroll
+      for (int k = 0; k < NX; ++k)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          gp[k][e] = gc[k][e];
+          gc[k][e] = gn[k][e];
+        }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: it holds the warps' sums now
+
+  // Lanes l and l + 16 of a warp share a channel lane (tile rows ty, ty + 1).
+  float* sums = reinterpret_cast<float*>(gw_smem);  // (WARPS, 27, CT)
+  const int warp = tid / 32, lane = tid % 32;
+#pragma unroll
+  for (int t = 0; t < 27; ++t)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      const float s = acc[t][e] + __shfl_xor_sync(0xffffffffu, acc[t][e], 16);
+      if (lane < 16) sums[(warp * 27 + t) * G::CT + cl * VEC + e] = s;
+    }
+  __syncthreads();
+  float* out = partial + part * 27 * g.C + c0;
+  for (int i = tid; i < 27 * G::CT; i += G::THREADS) {
+    const int t = i / G::CT, cc = i % G::CT;
+    if (c0 + cc >= g.C) continue;
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < G::WARPS; ++w) s += sums[(w * 27 + t) * G::CT + cc];
+    out[t * g.C + cc] = s;
+  }
+}
+
+// gw[i] = sum over p of partial[p][i], i < n = 27 C: a block owns 32
+// outputs; row y of its 32 rows of lanes sums p = y, y + 32, ... in order,
+// then row 0 sums the rows in order.
+constexpr int kGwSumRows = 32;
+
+__global__ void __launch_bounds__(32 * kGwSumRows)
+dw3d_gw_reduce_kernel(const float* __restrict__ partial, float* __restrict__ gw, int64_t n_part,
+                      int n) {
+  __shared__ float rows[kGwSumRows][33];
+  const int i = blockIdx.x * 32 + threadIdx.x;
+  float s = 0.f;
+  if (i < n) {
+#pragma unroll 4
+    for (int64_t p = threadIdx.y; p < n_part; p += kGwSumRows) s += partial[p * n + i];
+  }
+  rows[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y == 0 && i < n) {
+    float t = 0.f;
+    for (int r = 0; r < kGwSumRows; ++r) t += rows[r][threadIdx.x];
+    gw[i] = t;
+  }
+}
+
+// Floats of partial sums a weight-gradient call needs.
+template <typename T, int STRIDE>
+int64_t gw_workspace(int B, int D, int H, int W, int C) {
+  const TileGeometry g = gw_geometry<T, STRIDE>(D, H, W, C);
+  return static_cast<int64_t>(B) * g.n_zt * g.n_yt * g.n_xt * 27 * C;
+}
+
+template <typename T, int STRIDE, bool VECIO>
+cudaError_t launch_gw(const void* x, const void* gy, float* work, int64_t work_floats, float* gw,
+                      int B, int D, int H, int W, int C, cudaStream_t stream) {
+  using G = GwTile<T, STRIDE>;
+  const TileGeometry g = gw_geometry<T, STRIDE>(D, H, W, C);
+  const int64_t n_part = static_cast<int64_t>(B) * g.n_zt * g.n_yt * g.n_xt;
+  const int64_t n = 27 * static_cast<int64_t>(C);
+  if (n == 0) return cudaSuccess;
+  if (n_part == 0) return cudaMemsetAsync(gw, 0, n * sizeof(float), stream);
+  if (n_part * n > work_floats || n > INT_MAX) return cudaErrorInvalidValue;
+  const int64_t blocks = n_part * g.n_ct;
+  if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
+  auto kernel = dw3d_gw_kernel<T, STRIDE, VECIO>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(G::SMEM));
   if (err != cudaSuccess) return err;
-  const int n = 27 * C;
-  dw3d_gw_reduce_kernel<<<(n + 255) / 256, 256, 0, stream>>>(partial, gw, n_part, n);
+  kernel<<<static_cast<unsigned>(blocks), G::THREADS, G::SMEM, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(gy), work, g);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dw3d_gw_reduce_kernel<<<static_cast<unsigned>((n + 31) / 32), dim3(32, kGwSumRows), 0, stream>>>(
+      work, gw, n_part, static_cast<int>(n));
   return cudaGetLastError();
+}
+
+template <typename T, int STRIDE>
+cudaError_t launch_gw_io(const void* x, const void* gy, float* work, int64_t work_floats,
+                         float* gw, int B, int D, int H, int W, int C, cudaStream_t stream) {
+  if (use_vecio<T>(x, gy, C))
+    return launch_gw<T, STRIDE, true>(x, gy, work, work_floats, gw, B, D, H, W, C, stream);
+  return launch_gw<T, STRIDE, false>(x, gy, work, work_floats, gw, B, D, H, W, C, stream);
 }
 
 template <typename T_, int VEC_>
@@ -750,24 +907,37 @@ extern "C" int dw3d_grad_x(const void* gy, const void* w27, void* gx, int is_bf1
   }));
 }
 
+// Floats of scratch a dw3d_grad_w call with these arguments needs; -1 for
+// an unsupported stride.
+extern "C" long long dw3d_grad_w_workspace(int is_bf16, int stride, int B, int D, int H, int W,
+                                           int C) {
+  if (stride == 1)
+    return is_bf16 ? gw_workspace<__nv_bfloat16, 1>(B, D, H, W, C)
+                   : gw_workspace<float, 1>(B, D, H, W, C);
+  if (stride == 2)
+    return is_bf16 ? gw_workspace<__nv_bfloat16, 2>(B, D, H, W, C)
+                   : gw_workspace<float, 2>(B, D, H, W, C);
+  return -1;
+}
+
 // The weight gradient of dw3d_fwd into gw (27, C) f32. x: the forward input
-// (B, D, H, W, C); gy: the cotangent of y. partial: f32 scratch of
-// n_part * 27 * C floats (1 <= n_part <= 65535), overwritten.
-extern "C" int dw3d_grad_w(const void* x, const void* gy, void* partial, void* gw, int n_part,
-                           int is_bf16, int stride, int B, int D, int H, int W, int C,
+// (B, D, H, W, C); gy: the cotangent of y. work: f32 scratch of work_floats
+// >= dw3d_grad_w_workspace(...) floats, overwritten.
+extern "C" int dw3d_grad_w(const void* x, const void* gy, void* work, long long work_floats,
+                           void* gw, int is_bf16, int stride, int B, int D, int H, int W, int C,
                            void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* p = static_cast<float*>(partial);
+  float* p = static_cast<float*>(work);
   float* out = static_cast<float*>(gw);
   (void)cudaGetLastError();
-  return static_cast<int>(by_type(is_bf16, C, alignment(x, gy), [&](auto tv) {
-    using TV = decltype(tv);
-    if (stride == 1)
-      return launch_gw<typename TV::T, TV::VEC, 1>(x, gy, p, out, n_part, B, D, H, W, C, s);
-    if (stride == 2)
-      return launch_gw<typename TV::T, TV::VEC, 2>(x, gy, p, out, n_part, B, D, H, W, C, s);
-    return cudaErrorInvalidValue;
-  }));
+  cudaError_t err = cudaErrorInvalidValue;
+  if (stride == 1)
+    err = is_bf16 ? launch_gw_io<__nv_bfloat16, 1>(x, gy, p, work_floats, out, B, D, H, W, C, s)
+                  : launch_gw_io<float, 1>(x, gy, p, work_floats, out, B, D, H, W, C, s);
+  else if (stride == 2)
+    err = is_bf16 ? launch_gw_io<__nv_bfloat16, 2>(x, gy, p, work_floats, out, B, D, H, W, C, s)
+                  : launch_gw_io<float, 2>(x, gy, p, work_floats, out, B, D, H, W, C, s);
+  return static_cast<int>(err);
 }
 
 extern "C" const char* dw3d_error_string(int code) {

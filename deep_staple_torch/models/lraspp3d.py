@@ -332,8 +332,10 @@ class MobileNetLRASPP3D(nn.Module):
         low = seg(self.lom, high, train)
         low = seg(self.aspp, low, train, generator)
         y = seg(self.head, low, high, train)
-        # Final trilinear upsample to the input size, in float32 (reference :232).
-        y = _to_ndhwc(resize_nd(_to_ncdhw(y.float()), in_spatial, mode="linear",
+        # Final trilinear upsample to the input size, in float32 (reference :232);
+        # a float64 model stays in float64.
+        y = y.to(torch.promote_types(y.dtype, torch.float32))
+        y = _to_ndhwc(resize_nd(_to_ncdhw(y), in_spatial, mode="linear",
                                 align_corners=False))
         return {"out": y}
 

@@ -40,8 +40,9 @@ SLAB_STRIDE = 4
 
 
 def _moments(x):
-    """float32 E[x] and E[x^2] over every axis but the last."""
-    xf = x.float()
+    """E[x] and E[x^2] over every axis but the last, in float32 (float64 for
+    a float64 x)."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
     axes = tuple(range(x.dim() - 1))
     return xf.mean(axes), (xf * xf).mean(axes)
 

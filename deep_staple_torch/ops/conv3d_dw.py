@@ -30,22 +30,19 @@ import torch.nn.functional as F
 
 from . import cuda_build
 
-# Output columns a weight-gradient launch splits its sum over (the first
-# pass's partial sums, one (27, C) float32 block each).
-GW_MAX_PARTS = 1024
-
 
 def load_library():
     lib = cuda_build.load("depthwise_conv3d")
     if not hasattr(lib, "error_string"):
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        for fn, args in (
-            (lib.dw3d_fwd, [vp, vp, vp, i, i, i, i, i, i, i, vp]),
-            (lib.dw3d_grad_x, [vp, vp, vp, i, i, i, i, i, i, i, vp]),
-            (lib.dw3d_grad_w, [vp, vp, vp, vp, i, i, i, i, i, i, i, i, vp]),
+        vp, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        for fn, args, res in (
+            (lib.dw3d_fwd, [vp, vp, vp, i, i, i, i, i, i, i, vp], i),
+            (lib.dw3d_grad_x, [vp, vp, vp, i, i, i, i, i, i, i, vp], i),
+            (lib.dw3d_grad_w_workspace, [i, i, i, i, i, i, i], i64),
+            (lib.dw3d_grad_w, [vp, vp, vp, i64, vp, i, i, i, i, i, i, i, vp], i),
         ):
             fn.argtypes = args
-            fn.restype = ctypes.c_int
+            fn.restype = res
         lib.dw3d_error_string.argtypes = [ctypes.c_int]
         lib.dw3d_error_string.restype = ctypes.c_char_p
         lib.error_string = lib.dw3d_error_string
@@ -192,8 +189,8 @@ def depthwise_conv3d_grad_x(g, kernel, stride: int, in_shape):
 def depthwise_conv3d_grad_w(x, g, stride: int):
     """The weight gradient (27, C) float32: `depthwise_conv3d_grad_w_plain`
     on the CPU, the two-pass kernel on CUDA (counted in
-    `depthwise_conv3d_grad_w.launches`); its sum has a fixed order, so the
-    result repeats bit for bit."""
+    `depthwise_conv3d_grad_w.launches`) with a scratch of per-block partial
+    sums; its sum has a fixed order, so the result repeats bit for bit."""
     if not _on_cuda(x):
         return depthwise_conv3d_grad_w_plain(x, g, stride)
     B, D, H, W, C = x.shape
@@ -203,13 +200,14 @@ def depthwise_conv3d_grad_w(x, g, stride: int):
         raise ValueError(f"g must be contiguous {x.dtype} {want} on {x.device}, got "
                          f"{g.dtype} {tuple(g.shape)} on {g.device}")
     gw = torch.empty((27, C), dtype=torch.float32, device=x.device)
-    n_part = min(B * want[2] * want[3], GW_MAX_PARTS)
-    if n_part == 0 or C == 0:
+    if g.numel() == 0:
         return gw.zero_()
     lib = load_library()
-    partial = torch.empty((n_part, 27, C), dtype=torch.float32, device=x.device)
-    err = lib.dw3d_grad_w(x.data_ptr(), g.data_ptr(), partial.data_ptr(), gw.data_ptr(), n_part,
-                          int(x.dtype == torch.bfloat16), stride, B, D, H, W, C, _stream(x))
+    is_bf16 = int(x.dtype == torch.bfloat16)
+    n_work = lib.dw3d_grad_w_workspace(is_bf16, stride, B, D, H, W, C)
+    work = torch.empty(n_work, dtype=torch.float32, device=x.device)
+    err = lib.dw3d_grad_w(x.data_ptr(), g.data_ptr(), work.data_ptr(), n_work, gw.data_ptr(),
+                          is_bf16, stride, B, D, H, W, C, _stream(x))
     cuda_build.check(lib, err, "depthwise_conv3d_grad_w")
     depthwise_conv3d_grad_w.launches += 1
     return gw

@@ -9,9 +9,10 @@ the same three behaviours from per-axis interpolation matrices:
   * nearest: src = floor(dst / scale), or floor(dst * in/out) without a
     scale (labels).
 
-Linear resizes run through `F.interpolate` in float32 and cast back to the
-input dtype, as the JAX version accumulates in float32. Nearest resizes
-gather with indices computed in float32 exactly as the JAX version does.
+Linear resizes run through `F.interpolate` in float32 (float64 for float64
+inputs) and cast back to the input dtype, as the JAX version accumulates in
+float32. Nearest resizes gather with indices computed in float32 exactly as
+the JAX version does.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ def _resize_linear(x, out_spatial, align_corners: bool, scale):
     # A (N, C, *spatial) tensor goes in as it is, so a channels-last view
     # keeps its memory layout; other ranks fold their leading axes into N.
     xi = x if x.dim() == n + 2 else x.reshape((-1, 1) + spatial)
-    xi = xi.float()
+    xi = xi.to(torch.promote_types(xi.dtype, torch.float32))
     if scale is not None and not align_corners:
         # The JAX version takes src = (dst + 0.5) / scale - 0.5 here; so does
         # F.interpolate with an explicit scale and recompute_scale_factor=False.
