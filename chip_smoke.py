@@ -88,7 +88,14 @@ DATASET_LEN = 64
 # extents below one, D below a segment and one past one, C = 16, 48 and 144
 # (not multiples of 32 bf16 channels), and C = 6, whose voxel is no multiple
 # of 16 bytes. The weight gradient tiles (y, x) and C as the forward does but
-# walks z segments of at most 64 output planes: the last two shapes have 65.
+# walks z segments of at most 64 output planes: the next two shapes have 65.
+# The stride-2 input gradient tiles 8 x 8 cotangent columns (16 x 16 inputs of
+# (y, x)) of a 64-byte channel tile and walks z segments of at most 16
+# cotangent planes with a carry from plane to plane: the last six shapes cut
+# that with H and W one above and one below a multiple of 16 or 32, D odd and
+# 17 cotangent planes (one past a segment, so the carry crosses into the
+# next), extents of 1 and 2 where an odd input has no cotangent o + 1, C = 16
+# (half a bf16 tile) and C = 6 (no 16-byte copies or stores).
 EDGE_DW = [
     ((2, 7, 5, 4, 5), 1), ((2, 7, 5, 4, 5), 2),
     ((1, 8, 6, 5, 130), 1), ((1, 8, 6, 5, 130), 2),
@@ -98,6 +105,8 @@ EDGE_DW = [
     ((1, 16, 20, 35, 144), 1), ((1, 15, 20, 35, 144), 2),
     ((2, 6, 9, 19, 6), 1),
     ((1, 65, 11, 18, 48), 1), ((1, 129, 9, 17, 6), 2),
+    ((2, 33, 31, 33, 16), 2), ((1, 35, 17, 15, 48), 2), ((1, 17, 15, 17, 6), 2),
+    ((1, 2, 1, 3, 8), 2), ((1, 10, 12, 9, 48), 2), ((3, 1, 2, 17, 6), 2),
 ]
 # K1 (one scanline pass) at the three passes of a full-size batch: rows of W
 # lanes, then of H, then of D; and an odd L.
@@ -1450,7 +1459,8 @@ def summary_line(rec):
     one training forward beside them; the backward kernels' are sums over
     one training step's ten calls (batch 8), K1's over its three passes;
     K4's are one EM pass over the 4 x 30 group, with 4 x 10 and one case
-    beside them. float32 at the top level, bfloat16 alongside."""
+    beside them; the input gradient's stride-2 call (`stride_2`) stands
+    apart too. float32 at the top level, bfloat16 alongside."""
     times = rec.get("times", {})
     checks = rec.get("kernel_check", {})
     paths = rec.get("main_path_launches", {})
@@ -1486,6 +1496,9 @@ def summary_line(rec):
                                  "max_abs_err": max(bf_errs) if bf_errs else None}
         if name == "depthwise_conv3d_fwd" and "train" in rows:
             entry["train_forward"] = {d: _sums(r) for d, r in rows["train"].items()}
+        if name == "depthwise_conv3d_grad_x" and "train" in rows:
+            entry["stride_2"] = {d: _sums([r for r in rs if r["stride"] == 2])
+                                 for d, rs in rows["train"].items()}
         entries.append(entry)
     return {"kernels": entries}
 

@@ -60,20 +60,31 @@
 #include <cuda_runtime.h>
 
 #include <climits>
-#include <cmath>
 #include <cstdint>
 #include <type_traits>
 
 namespace {
 
-constexpr int kThreads = 256;  // target threads per block of dw3d_gx2_kernel
-constexpr int kZSeg = 16;      // most planes a forward or dw3d_gx2_kernel block walks along z
+constexpr int kZSeg = 16;  // most output planes a forward block walks along z
 
 __device__ __forceinline__ void load(const float* p, float (&v)[4]) {
   const float4 t = *reinterpret_cast<const float4*>(p);
   v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
 }
 __device__ __forceinline__ void load(const float* p, float (&v)[1]) { v[0] = *p; }
+__device__ __forceinline__ void load(const float* p, float (&v)[8]) {
+  load(p, reinterpret_cast<float (&)[4]>(v[0]));
+  load(p + 4, reinterpret_cast<float (&)[4]>(v[4]));
+}
+__device__ __forceinline__ void load(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t h[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {  // channel 2k in the low half
+    v[2 * k] = __uint_as_float(h[k] << 16);
+    v[2 * k + 1] = __uint_as_float(h[k] & 0xffff0000u);
+  }
+}
 __device__ __forceinline__ void load(const __nv_bfloat16* p, float (&v)[2]) {
   const float2 t = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
   v[0] = t.x; v[1] = t.y;
@@ -82,9 +93,11 @@ __device__ __forceinline__ void load(const __nv_bfloat16* p, float (&v)[1]) {
   v[0] = __bfloat162float(*p);
 }
 
-__device__ __forceinline__ void store(float* p, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+__device__ __forceinline__ uint32_t bf16x2_bits(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&h);
 }
+
 __device__ __forceinline__ void store(float* p, const float (&v)[1]) { *p = v[0]; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, const float (&v)[2]) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
@@ -139,14 +152,35 @@ struct TileGeometry {
   int Do, Ho, Wo;              // output extents
   int n_ct, n_xt, n_yt, n_zt;  // tiles along C, W, H, and z segments
   int zseg;                    // output planes a z segment
+
+  int64_t blocks(int B) const { return static_cast<int64_t>(B) * n_zt * n_yt * n_xt * n_ct; }
 };
+
+// The grid of a tiled kernel at stride s: tiles of ct channels and ty x tx
+// outputs of (yo, xo), and z segments of at most zseg_max output planes,
+// split evenly.
+TileGeometry tile_geometry(int s, int D, int H, int W, int C, int ct, int ty, int tx,
+                           int zseg_max) {
+  TileGeometry g;
+  g.D = D; g.H = H; g.W = W; g.C = C;
+  g.Do = (D + s - 1) / s;
+  g.Ho = (H + s - 1) / s;
+  g.Wo = (W + s - 1) / s;
+  g.n_ct = (C + ct - 1) / ct;
+  g.n_xt = (g.Wo + tx - 1) / tx;
+  g.n_yt = (g.Ho + ty - 1) / ty;
+  g.n_zt = (g.Do + zseg_max - 1) / zseg_max;
+  g.zseg = g.n_zt > 0 ? (g.Do + g.n_zt - 1) / g.n_zt : 1;
+  return g;
+}
 
 // Slot of voxel x of slab row r: pairs (2k, 2k+1) swap on bit STRIDE-1 of r,
 // so that rows r and r + STRIDE (one output row apart) use opposite halves
-// of the banks.
+// of the banks. STRIDE 0: no swizzle.
 template <int STRIDE>
 __device__ __forceinline__ int slot_flip(int r) {
-  return (r >> (STRIDE - 1)) & 1;
+  if constexpr (STRIDE == 0) return 0;
+  else return (r >> (STRIDE - 1)) & 1;
 }
 
 // Copies the ROWS x RS voxels from (y0, x0) of plane z of the (B, D, H, W, C)
@@ -358,17 +392,8 @@ template <typename T, int STRIDE, bool FLIP, bool VECIO>
 cudaError_t launch_fwd(const void* x, const float* w27, void* y, int B, int D, int H, int W,
                        int C, cudaStream_t stream) {
   using F = FwdTile<T, STRIDE>;
-  TileGeometry g;
-  g.D = D; g.H = H; g.W = W; g.C = C;
-  g.Do = (D + STRIDE - 1) / STRIDE;
-  g.Ho = (H + STRIDE - 1) / STRIDE;
-  g.Wo = (W + STRIDE - 1) / STRIDE;
-  g.n_ct = (C + F::CT - 1) / F::CT;
-  g.n_xt = (g.Wo + F::TX - 1) / F::TX;
-  g.n_yt = (g.Ho + F::TY - 1) / F::TY;
-  g.n_zt = (g.Do + kZSeg - 1) / kZSeg;
-  g.zseg = g.n_zt > 0 ? (g.Do + g.n_zt - 1) / g.n_zt : 1;  // even segments
-  const int64_t blocks = static_cast<int64_t>(B) * g.n_zt * g.n_yt * g.n_xt * g.n_ct;
+  const TileGeometry g = tile_geometry(STRIDE, D, H, W, C, F::CT, F::TY, F::TX, kZSeg);
+  const int64_t blocks = g.blocks(B);
   if (blocks == 0) return cudaSuccess;
   if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
   const size_t smem = F::kStages * F::SLAB * sizeof(T) + 27 * F::CT * sizeof(float);
@@ -399,40 +424,134 @@ cudaError_t launch_fwd_io(const void* x, const float* w27, void* y, int B, int D
 
 // ------------------------------------------------------------------ backward
 
-struct Geometry {
-  int D, H, W, C;      // input extents
-  int Do, Ho, Wo;      // output extents
-  int n_ct, n_xt, n_yt, n_zt;  // tiles along C, W, H, and z segments
+// Input gradient, stride 2: the VJP of the model's one stride-2 depthwise
+// conv (block 6), deep_staple_tpu/ops/conv3d.py:77-90, which dilates the
+// cotangent to the input lattice and applies the flipped taps (the Pallas
+// VJP, conv3d_pallas.py:264-269, takes stride 1 only). Along each axis the
+// even input 2o takes cotangent o through tap 1, and the odd input 2o + 1
+// takes o through tap 2 and o + 1 through tap 0 (zero past the cotangent's
+// extent). Nothing of the 8x larger dilated cotangent exists here.
+//
+// What bounds it: bytes, and mostly those written. A cotangent voxel feeds
+// 2 x 2 x 2 input voxels through 27 FMAs a channel: 54 flop against 8
+// elements written and one read, 1.5 flop/byte in f32, far under the 20
+// flop/byte ridge. gx is 8x the cotangent, so the least time is gx written
+// once (and gy read once) at the memory rate.
+//
+// What the design does about it (dw3d_gx2_kernel): every input voxel is
+// written once, by 16-byte streaming stores, and no lane of a warp takes
+// other taps than its neighbours.
+//  * A thread owns one cotangent column (yo, xo) and 16 bytes of channels
+//    (4 f32 or 8 bf16), and writes the 2 x 2 input voxels (2yo + py,
+//    2xo + px) of two input planes per cotangent plane. The taps of each of
+//    those voxels follow from (py, px) alone, so every lane runs the same 27
+//    FMAs a channel, with no parity test and no branch.
+//  * A block owns a channel tile (CT), TY x TX cotangent columns and a
+//    segment of at most ZSEG cotangent planes [zo0, zo1), and walks it along
+//    z with a carry: at plane zo, input plane 2zo is complete (tap dz = 1),
+//    and input plane 2zo - 1 is completed by tap dz = 0 on top of the dz = 2
+//    partials carried from plane zo - 1 (4 voxels x VEC floats). The walk
+//    reads plane zo1 (zero past Do) as its halo, so input planes 2 zo0 ..
+//    2 zo1 - 1 are written by one block each.
+//  * Each cotangent plane's (TY + 1) x (TX + 1) tile (the extra row and
+//    column are the o + 1 that odd inputs take) is copied into a ring of
+//    kStages tiles in shared memory with cp.async, src-size 0 past Ho and Wo,
+//    the next planes' copies in flight while one is summed; one barrier a
+//    plane. A warp reads 512 contiguous bytes of a tile row, so the tile
+//    needs no swizzle.
+//  * The weights are read from shared memory as each voxel needs them, with
+//    a __syncwarp() after each voxel's store: without it ptxas loads the
+//    weights of all the plane's voxels at once (27 x VEC floats), which
+//    takes 132 registers in f32 and 196 in bf16, and spills at the
+//    launch bound.
+//  * Stores past H, W and D (the odd input 2o + 1 = n at an odd extent) are
+//    masked.
+// Channel counts whose voxel is not a multiple of 16 bytes, or unaligned
+// tensors, take the same kernel with element copies and scalar stores.
+//
+// What it reached (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py's times
+// phase): 0.87 ms in f32 at the training call (8, 96, 96, 38, 192) against
+// a 0.723 ms bound, 83% of the HBM rate, and 0.55 ms in bf16 against 0.361,
+// 66% (the previous design, one thread an input column with 1 to 8
+// scattered taps a voxel: 3.74 / 3.59 ms). The sizes (f32: 64 channels,
+// 1 x 8 columns, z segments of 4; bf16: 32 channels, 4 x 8, 8; 3 stages,
+// 128 threads) came from an A/B of variants: 8 x 8 columns of 64 bytes at
+// 128 registers spilled and ran 1.23 / 0.58 ms; 4 bf16 channels a thread
+// with lane pairs trading halves for 16-byte stores (no spills) 0.63 ms;
+// plain stores rather than streaming ones 1-7% slower; segments of 16 or
+// 32 planes, 4 stages, other channel tiles: each slower or within 2%.
+// bf16 stays further from its bound: for the same 16 bytes stored, a
+// thread issues twice the FMAs and weight loads of f32.
+template <typename T>
+struct Gx2Tile {
+  static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr int VEC = 16 / sizeof(T);        // channels a thread: 16 bytes
+  static constexpr int CT = F32 ? 64 : 32;          // channels a block
+  static constexpr int CL = CT / VEC;               // lanes along C
+  static constexpr int TY = F32 ? 1 : 4, TX = 8;    // cotangent columns (yo, xo) a block
+  static constexpr int ZSEG = F32 ? 4 : 8;          // most cotangent planes a block walks
+  static constexpr int kStages = 3;                 // tiles in the ring
+  static constexpr int THREADS = CL * TY * TX;
+  static constexpr int ROWS = TY + 1, RS = TX + 1;  // a tile and its high-side halo
+  static constexpr int SLAB = ROWS * RS * CT;       // elements of a tile
+  static constexpr size_t RING_BYTES = static_cast<size_t>(kStages) * SLAB * sizeof(T);
+  static constexpr size_t SMEM = RING_BYTES + 27 * CT * sizeof(float);
+  static constexpr int MIN_BLOCKS = 65536 / (THREADS * 170);  // at most 170 registers a thread
+  static_assert(RING_BYTES % 16 == 0 && SMEM <= 48 * 1024, "16-byte weight loads, static smem");
 };
 
-// Channel tiles of at most 64 vectors, split evenly, and a near-square
-// TY x TX tile of (yo, xo) for the rest of the block's threads.
-template <int VEC>
-void tile_block(Geometry& g, int& cvt, int& tx, int& ty, int Ho, int Wo) {
-  const int cv = g.C / VEC;
-  g.n_ct = (cv + 63) / 64;
-  cvt = (cv + g.n_ct - 1) / g.n_ct;
-  const int sp = kThreads / cvt > 1 ? kThreads / cvt : 1;
-  ty = static_cast<int>(std::sqrt(static_cast<double>(sp)));
-  ty = ty < 1 ? 1 : (ty > Ho ? Ho : ty);
-  tx = sp / ty;
-  tx = tx < 1 ? 1 : (tx > Wo ? Wo : tx);
+// Adds the taps of depth dz to a, the input voxel (2yo + py, 2xo + px) of a
+// plane: along y, py = 0 takes cotangent row yo through dy = 1, and py = 1
+// takes yo through dy = 2 and yo + 1 through dy = 0; along x likewise.
+// gv[oy][ox] is the cotangent at (yo + oy, xo + ox); tap t of this thread's
+// channels is at w + t * CT.
+template <int CT, int VEC>
+__device__ __forceinline__ void gx2_taps(float (&a)[VEC], int dz, int py, int px,
+                                         const float (&gv)[2][2][VEC], const float* w) {
+#pragma unroll
+  for (int oy = 0; oy <= py; ++oy)
+#pragma unroll
+    for (int ox = 0; ox <= px; ++ox) {
+      float wv[VEC];
+      load(w + (dz * 9 + (py ? 2 - 2 * oy : 1) * 3 + (px ? 2 - 2 * ox : 1)) * CT, wv);
+      fma_taps(a, gv[oy][ox], wv);
+    }
 }
 
-// Input gradient, stride 2, in the transposed form of the forward: input
-// voxel i of an axis receives output o = (i + 1 - d) / 2 through tap d
-// wherever i + 1 - d is even and 0 <= o < ceil(n / 2): tap d = 1 at even i,
-// taps d = 0 and d = 2 at odd i, so 1 to 8 of the 27 taps per voxel. Nothing
-// of the 8x larger dilated cotangent that conv3d.py:83-86 builds exists here.
-// A thread owns VEC channels of one (yi, xi) input column and walks kZSeg
-// input planes; the cotangent, 1/8 the size of the result, is re-read from
-// L1/L2. Bound: the bytes of the result written.
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
+// One voxel's 16 bytes of channels from c (4 f32 or 8 bf16) as a streaming
+// store (gx is not read again here); without VECIO each channel below C on
+// its own.
+template <bool VECIO>
+__device__ __forceinline__ void put16(float* p, const float (&v)[4], int c, int C) {
+  if constexpr (VECIO) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (c + k < C) p[k] = v[k];
+  }
+}
+template <bool VECIO>
+__device__ __forceinline__ void put16(__nv_bfloat16* p, const float (&v)[8], int c, int C) {
+  if constexpr (VECIO) {
+    __stcs(reinterpret_cast<uint4*>(p), make_uint4(bf16x2_bits(v[0], v[1]), bf16x2_bits(v[2], v[3]),
+                                                   bf16x2_bits(v[4], v[5]), bf16x2_bits(v[6], v[7])));
+  } else {
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (c + k < C) p[k] = __float2bfloat16(v[k]);
+  }
+}
+
+template <typename T, bool VECIO>
+__global__ void __launch_bounds__(Gx2Tile<T>::THREADS, Gx2Tile<T>::MIN_BLOCKS)
 dw3d_gx2_kernel(const T* __restrict__ gy, const float* __restrict__ w27, T* __restrict__ gx,
-                Geometry g) {
-  extern __shared__ float w_s[];
-  const int ctw = blockDim.x * VEC;
+                TileGeometry g) {
+  using G = Gx2Tile<T>;
+  constexpr int VEC = G::VEC;
+  extern __shared__ __align__(16) unsigned char gx2_smem[];
+  T* ring = reinterpret_cast<T*>(gx2_smem);                           // kStages tiles
+  float* w_s = reinterpret_cast<float*>(ring + G::kStages * G::SLAB);  // (27, CT)
 
   int64_t bid = blockIdx.x;
   const int ct = static_cast<int>(bid % g.n_ct); bid /= g.n_ct;
@@ -441,86 +560,94 @@ dw3d_gx2_kernel(const T* __restrict__ gy, const float* __restrict__ w27, T* __re
   const int zt = static_cast<int>(bid % g.n_zt); bid /= g.n_zt;
   const int64_t b = bid;
 
-  const int c0 = ct * ctw;
-  const int nc = min(ctw, g.C - c0);
-  const int tid = threadIdx.x + blockDim.x * (threadIdx.y + blockDim.y * threadIdx.z);
-  const int nthr = blockDim.x * blockDim.y * blockDim.z;
-  for (int i = tid; i < 27 * nc; i += nthr) {
-    const int t = i / nc, c = i - t * nc;
-    w_s[t * ctw + c] = w27[static_cast<int64_t>(t) * g.C + c0 + c];
+  const int tid = threadIdx.x;
+  const int cl = tid % G::CL;            // lane along C
+  const int tx = (tid / G::CL) % G::TX;  // cotangent column in the tile
+  const int ty = tid / (G::CL * G::TX);  // cotangent row in the tile
+  const int c0 = ct * G::CT;
+  const int c = c0 + cl * VEC;
+  const int yo0 = yt * G::TY, xo0 = xt * G::TX;
+  const int yo = yo0 + ty, xo = xo0 + tx;
+  const int zo0 = zt * g.zseg;
+  const int zo1 = min(zo0 + g.zseg, g.Do);
+  const int np = zo1 - zo0 + 1;  // the segment's planes, then plane zo1 as its halo
+
+  auto fetch = [&](int i) {  // cotangent plane zo0 + i into its ring slot, one group
+    const int zo = zo0 + i;
+    if (i < np && zo < g.Do)
+      copy_slab<T, G::ROWS, G::RS, G::CT, G::THREADS, 0, VECIO>(
+          gy, ring + (i % G::kStages) * G::SLAB, g.Do, g.Ho, g.Wo, g.C, b, zo, yo0, xo0, c0, tid);
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < G::kStages - 1; ++i) fetch(i);
+  for (int i = tid; i < 27 * G::CT; i += G::THREADS) {  // read after the walk's first barrier
+    const int t = i / G::CT, cc = c0 + i % G::CT;
+    w_s[i] = cc < g.C ? w27[static_cast<int64_t>(t) * g.C + cc] : 0.f;
   }
-  __syncthreads();
 
-  const int c = c0 + threadIdx.x * VEC;
-  const int xi = xt * blockDim.y + threadIdx.y;
-  const int yi = yt * blockDim.z + threadIdx.z;
-  if (c >= g.C || xi >= g.W || yi >= g.H) return;
+  const bool active = c < g.C && yo < g.Ho && xo < g.Wo;
+  const bool y_odd = 2 * yo + 1 < g.H, x_odd = 2 * xo + 1 < g.W;  // odd inputs inside
+  const int64_t sH = static_cast<int64_t>(g.W) * g.C, sD = g.H * sH;
+  T* out = gx + b * g.D * sD + 2 * yo * sH + static_cast<int64_t>(2 * xo) * g.C + c;
+  const float* w = w_s + cl * VEC;
+  auto put = [&](int zi, int py, int px, const float (&a)[VEC]) {
+    if (active && (py == 0 || y_odd) && (px == 0 || x_odd))
+      put16<VECIO>(out + zi * sD + py * sH + px * g.C, a, c, g.C);
+    __syncwarp();  // keeps ptxas from loading later voxels' weights early
+  };
 
-  float wr[27][VEC];
+  float carry[2][2][VEC] = {};  // taps dz = 2 of plane zo - 1, for input plane 2zo - 1
+  for (int i = 0; i < np; ++i) {
+    cp_async_wait<G::kStages - 2>();
+    __syncthreads();  // plane i has landed, and every thread is done with plane i-1
+    fetch(i + G::kStages - 1);
+    const int zo = zo0 + i;
+    float gv[2][2][VEC] = {};
+    if (zo < g.Do) {
+      const T* tile = ring + (i % G::kStages) * G::SLAB + cl * VEC;
 #pragma unroll
-  for (int t = 0; t < 27; ++t)
+      for (int oy = 0; oy < 2; ++oy)
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) wr[t][k] = w_s[t * ctw + threadIdx.x * VEC + k];
-
-  const int64_t soH = static_cast<int64_t>(g.Wo) * g.C;
-  const int64_t soD = static_cast<int64_t>(g.Ho) * soH;
-  int64_t off[3][3];  // offset of output (yo, xo) of taps (dy, dx); -1: no output
+        for (int ox = 0; ox < 2; ++ox) load(tile + ((ty + oy) * G::RS + tx + ox) * G::CT, gv[oy][ox]);
+    }
+    if (i > 0 && 2 * zo - 1 < g.D) {  // input plane 2zo - 1: dz = 0 on the carry
 #pragma unroll
-  for (int dy = 0; dy < 3; ++dy) {
-    const int vy = yi + 1 - dy;
-    const bool yok = (vy & 1) == 0 && vy >= 0 && (vy >> 1) < g.Ho;
+      for (int py = 0; py < 2; ++py)
 #pragma unroll
-    for (int dx = 0; dx < 3; ++dx) {
-      const int vx = xi + 1 - dx;
-      const bool xok = (vx & 1) == 0 && vx >= 0 && (vx >> 1) < g.Wo;
-      off[dy][dx] = yok && xok ? (vy >> 1) * soH + static_cast<int64_t>(vx >> 1) * g.C : -1;
+        for (int px = 0; px < 2; ++px) {
+          gx2_taps<G::CT>(carry[py][px], 0, py, px, gv, w);
+          put(2 * zo - 1, py, px, carry[py][px]);
+        }
+    }
+    if (i < np - 1) {  // input plane 2zo (dz = 1), and the carry for 2zo + 1 (dz = 2)
+#pragma unroll
+      for (int py = 0; py < 2; ++py)
+#pragma unroll
+        for (int px = 0; px < 2; ++px) {
+          float a[VEC] = {};
+          gx2_taps<G::CT>(a, 1, py, px, gv, w);
+          put(2 * zo, py, px, a);
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) carry[py][px][k] = 0.f;
+          gx2_taps<G::CT>(carry[py][px], 2, py, px, gv, w);
+        }
     }
   }
-  const T* gb = gy + b * g.Do * soD + c;
-  const int64_t sD = static_cast<int64_t>(g.H) * g.W * g.C;
-  T* out = gx + b * g.D * sD + (static_cast<int64_t>(yi) * g.W + xi) * g.C + c;
-
-  const int z0 = zt * kZSeg;
-  const int z1 = min(z0 + kZSeg, g.D);
-  for (int zi = z0; zi < z1; ++zi) {
-    float acc[VEC] = {};
-#pragma unroll
-    for (int dz = 0; dz < 3; ++dz) {
-      const int vz = zi + 1 - dz;
-      if ((vz & 1) || vz < 0 || (vz >> 1) >= g.Do) continue;
-      const T* plane = gb + (vz >> 1) * soD;
-#pragma unroll
-      for (int t = 0; t < 9; ++t) {
-        const int64_t o = off[t / 3][t % 3];
-        if (o < 0) continue;
-        float v[VEC];
-        load(plane + o, v);
-        fma_taps(acc, v, wr[dz * 9 + t]);
-      }
-    }
-    store(out + zi * sD, acc);
-  }
+  cp_async_wait<0>();  // no copy outlives the block
 }
 
-template <typename T, int VEC>
+template <typename T>
 cudaError_t launch_gx2(const void* gy, const float* w27, void* gx, int B, int D, int H, int W,
                        int C, cudaStream_t stream) {
-  Geometry g;
-  g.D = D; g.H = H; g.W = W; g.C = C;
-  g.Do = (D + 1) / 2;
-  g.Ho = (H + 1) / 2;
-  g.Wo = (W + 1) / 2;
-  int cvt, tx, ty;
-  tile_block<VEC>(g, cvt, tx, ty, H, W);
-  g.n_xt = (W + tx - 1) / tx;
-  g.n_yt = (H + ty - 1) / ty;
-  g.n_zt = (D + kZSeg - 1) / kZSeg;
-  const int64_t blocks = static_cast<int64_t>(B) * g.n_zt * g.n_yt * g.n_xt * g.n_ct;
+  using G = Gx2Tile<T>;
+  const TileGeometry g = tile_geometry(2, D, H, W, C, G::CT, G::TY, G::TX, G::ZSEG);
+  const int64_t blocks = g.blocks(B);
   if (blocks == 0) return cudaSuccess;
   if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
-  const dim3 block(cvt, tx, ty);
-  const size_t smem = 27 * static_cast<size_t>(cvt) * VEC * sizeof(float);
-  dw3d_gx2_kernel<T, VEC><<<static_cast<unsigned>(blocks), block, smem, stream>>>(
+  auto kernel = use_vecio<T>(gy, gx, C) ? &dw3d_gx2_kernel<T, true>
+                                        : &dw3d_gx2_kernel<T, false>;
+  kernel<<<static_cast<unsigned>(blocks), G::THREADS, G::SMEM, stream>>>(
       static_cast<const T*>(gy), w27, static_cast<T*>(gx), g);
   return cudaGetLastError();
 }
@@ -603,17 +730,7 @@ struct GwTile {
 template <typename T, int STRIDE>
 TileGeometry gw_geometry(int D, int H, int W, int C) {
   using G = GwTile<T, STRIDE>;
-  TileGeometry g;
-  g.D = D; g.H = H; g.W = W; g.C = C;
-  g.Do = (D + STRIDE - 1) / STRIDE;
-  g.Ho = (H + STRIDE - 1) / STRIDE;
-  g.Wo = (W + STRIDE - 1) / STRIDE;
-  g.n_ct = (C + G::CT - 1) / G::CT;
-  g.n_xt = (g.Wo + G::TX - 1) / G::TX;
-  g.n_yt = (g.Ho + G::TY - 1) / G::TY;
-  g.n_zt = (g.Do + kGwZSeg - 1) / kGwZSeg;
-  g.zseg = g.n_zt > 0 ? (g.Do + g.n_zt - 1) / g.n_zt : 1;  // even segments
-  return g;
+  return tile_geometry(STRIDE, D, H, W, C, G::CT, G::TY, G::TX, kGwZSeg);
 }
 
 // Block (ct, part) writes partial[part][t][c] for its CT channels, part =
@@ -843,28 +960,6 @@ cudaError_t launch_gw_io(const void* x, const void* gy, float* work, int64_t wor
   return launch_gw<T, STRIDE, false>(x, gy, work, work_floats, gw, B, D, H, W, C, stream);
 }
 
-template <typename T_, int VEC_>
-struct TypeVec {
-  using T = T_;
-  static constexpr int VEC = VEC_;
-};
-
-// Calls f(TypeVec<T, VEC>{}): 4 x f32 or 2 x bf16 where C and the pointers'
-// alignment allow them (every shape of the model), else one channel a thread.
-template <typename F>
-cudaError_t by_type(int is_bf16, int C, uintptr_t align, F&& f) {
-  if (is_bf16) {
-    if (C % 2 == 0 && align % 4 == 0) return f(TypeVec<__nv_bfloat16, 2>{});
-    return f(TypeVec<__nv_bfloat16, 1>{});
-  }
-  if (C % 4 == 0 && align % 16 == 0) return f(TypeVec<float, 4>{});
-  return f(TypeVec<float, 1>{});
-}
-
-uintptr_t alignment(const void* a, const void* b) {
-  return reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b);
-}
-
 }  // namespace
 
 // Plain C interface, loaded with ctypes. Each function launches on `stream`,
@@ -900,11 +995,10 @@ extern "C" int dw3d_grad_x(const void* gy, const void* w27, void* gx, int is_bf1
     return static_cast<int>(
         is_bf16 ? launch_fwd_io<__nv_bfloat16, 1, true>(gy, w, gx, B, D, H, W, C, s)
                 : launch_fwd_io<float, 1, true>(gy, w, gx, B, D, H, W, C, s));
-  return static_cast<int>(by_type(is_bf16, C, alignment(gy, gx), [&](auto tv) {
-    using TV = decltype(tv);
-    if (stride == 2) return launch_gx2<typename TV::T, TV::VEC>(gy, w, gx, B, D, H, W, C, s);
-    return cudaErrorInvalidValue;
-  }));
+  if (stride == 2)
+    return static_cast<int>(is_bf16 ? launch_gx2<__nv_bfloat16>(gy, w, gx, B, D, H, W, C, s)
+                                    : launch_gx2<float>(gy, w, gx, B, D, H, W, C, s));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Floats of scratch a dw3d_grad_w call with these arguments needs; -1 for

@@ -26,7 +26,8 @@ from deep_staple_torch.ops.conv3d_dw import (
 
 torch.set_num_threads(1)
 
-# Odd extents, C not a multiple of the vector width, and one model-like C.
+# Odd extents, C not a multiple of the vector width, and one model-like C;
+# then stride-2 extents of 1 and 2, where an odd input has no cotangent o + 1.
 CASES = [
     ((2, 7, 5, 4), 5, 1),
     ((2, 7, 5, 4), 5, 2),
@@ -34,6 +35,8 @@ CASES = [
     ((1, 8, 6, 5), 130, 1),
     ((1, 8, 6, 5), 130, 2),
     ((2, 6, 6, 5), 32, 1),
+    ((1, 2, 1, 3), 8, 2),
+    ((1, 10, 12, 9), 48, 2),
 ]
 
 
