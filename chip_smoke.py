@@ -121,9 +121,18 @@ SEP_EDGE = (4001, 37)
 CONS_SPATIAL = (256, 256, 100)
 CONS_CASES, CONS_ATLASES, CLI_ATLASES = 4, 30, 10
 CONS_SMALL = (2, 10, (64, 64, 25))
-# K4 at edge shapes: (C, R, V), R = 1, 3, 17 (not a multiple of 32) and 128
-# (the most the kernel takes); V = 1, a tile of 256 +/- 1, and 7x9x5.
-EDGE_STAPLE = [(2, R, V) for R in (1, 3, 17, 128) for V in (1, 255, 257, 315)]
+# K4 at edge shapes: (C, R, V). Its plan (`StapleTile`) compiles a form for
+# each even R up to 32 (an odd R gets a zero row), holds the words in
+# registers up to 16 rows and reads them again above, and keeps its sums in
+# shared memory with 256-voxel tiles above 32 (1,024 below): R = 1, 3, 16,
+# 17, 32, 33, 64 and 128 (the most it takes) against V = 1, each tile width
+# +/- 1, 7x9x5 and 1,040 (a multiple of 16: the 16-byte copies, a ragged
+# tail); then shapes where a block walks several tiles of its ring (ntiles >
+# nblk), aligned and not; then every R up to 32 (each form) at a ragged V.
+EDGE_STAPLE = [(2, R, V) for R in (1, 3, 16, 17, 32, 33, 64, 128)
+               for V in (1, 255, 257, 315, 1023, 1025, 1040)] + [
+    (2, 3, 262_144), (2, 17, 140_000), (3, 30, 140_001), (2, 33, 70_001), (2, 128, 40_000)] + [
+    (2, R, 2_053) for R in range(1, 33)]
 # Operations of one K4 pass a voxel, besides 4 a rater (a multiply-add each
 # for t and wd): the sigmoid (exp, add, divide), the mask and the w sum.
 STAPLE_OPS_PER_VOXEL = 8
@@ -181,6 +190,29 @@ def timed_ms(fn, reps: int, warmup: int = 2) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def graph_ms(fn, n: int = 20, reps: int = 5) -> float:
+    """Device time of one call: n calls captured once in a CUDA graph, the
+    graph replayed between CUDA events (median of `reps`), divided by n.
+    Neither a call's launch latency from an idle card (`timed_ms`) nor the
+    host's time in the wrapper counts; the gaps between the graph's kernels
+    do. (torch.profiler's kernel sums were tried first and, in one run, lost
+    half the launches.)"""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # allocations and per-stream state before the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side, capture_error_mode="relaxed"):
+        for _ in range(n):
+            fn()
+    ms = timed_ms(graph.replay, reps=reps, warmup=1) / n
+    del graph
+    return ms
 
 
 def _wrappers():
@@ -300,6 +332,42 @@ def phase_build(rec):
             if "registers" in ln or "spill" in ln or "error" in ln.lower() or "Function" in ln:
                 log(f"[build]   {ln.strip()}")
     log(f"[build] {len(built)} libraries in {rec['build_s']:.1f} s (nvcc in parallel)")
+    rec["staple_sass"] = _sass_conversions(built["staple_em"][0])
+    # K4's plan as the kernel computes it, against its mirror in staple_fused.
+    bad = [(C, R, V) for C in (1, 2, 4, 7) for R in (1, 10, 16, 17, 30, 32, 33, 64, 128)
+           for V in (1, 257, 1025, 6_553_600) if staple_fused.kernel_tile_plan(C, R, V)
+           != staple_fused.tile_plan(C, R, V)]
+    log(f"[build] K4's plan: kernel and staple_fused.tile_plan agree over the grid: {not bad}")
+    if bad:
+        raise AssertionError(f"K4's plan differs from tile_plan at {bad}")
+
+
+def _sass_conversions(so):
+    """Count K4's integer-to-float conversions (I2F, quarter rate on sm_90;
+    I2FP, on the FMA pipe) and byte permutes in each of its kernels' SASS."""
+    from deep_staple_torch.ops import cuda_build
+
+    tool = Path(cuda_build._nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(so)], capture_output=True, text=True,
+                         timeout=120).stdout
+    counts, fn = {}, None
+    for ln in out.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :")[1].strip()
+            counts[fn] = {"I2F": 0, "I2FP": 0, "PRMT": 0, "instructions": 0, "conversions": []}
+        elif fn and "/*" in ln and ";" in ln:
+            words = [w for w in ln.split("*/", 1)[1].split() if not w.startswith("@")]
+            if not words:
+                continue
+            op = words[0].split(".")[0]
+            counts[fn]["instructions"] += 1
+            if op in ("I2F", "I2FP", "PRMT"):
+                counts[fn][op] += 1
+            if op in ("I2F", "I2FP"):  # where: its offset, and whether it rounds a divisor
+                counts[fn]["conversions"].append(" ".join(ln.split(";")[0].split()))
+    for fn, c in counts.items():
+        log(f"[build]   sass {fn}: {c}")
+    return counts
 
 
 def phase_kernels(rec, seed):
@@ -636,7 +704,7 @@ def _profile(tag, fn):
     busy_ms = sum(r[0] for r in rows)
     ours = {name: sum(r[0] for r in rows if name in r[2]) for name in (
         "dw3d_fwd_kernel", "dw3d_gx2_kernel", "dw3d_gw_kernel", "dw3d_gw_reduce_kernel",
-        "sep_warp_pass_kernel", "staple_em_kernel", "staple_reduce_kernel")}
+        "sep_warp_pass_kernel", "staple_em_kernel")}
     log(f"[{tag}] {wall_ms:.1f} ms wall, device busy {busy_ms:.1f} ms ({busy_ms / wall_ms:.0%}); "
         + ", ".join(f"{k} {v:.1f} ms" for k, v in ours.items() if v))
     for ms, count, name in rows[:15]:
@@ -1116,6 +1184,14 @@ def phase_consensus_kernels(rec, seed, labels):
         if Vs < V:
             active[0] = False  # the kernel skips it; its rows are not compared
         wd, ws = staple_em_iter(d, coef, base, active)
+        if Vs == V:  # the consensus shapes: a second pass, bitwise equal to the first
+            wd2, ws2 = staple_em_iter(d, coef, base, active)
+            same = torch.equal(wd, wd2) and torch.equal(ws, ws2)
+            rec.setdefault("consensus_pass_repeat", {})[f"{C}x{R}"] = same
+            log(f"[consensus_kernels] staple_em_iter C={C} R={R:3d}: two passes bitwise equal {same}")
+            if not same:
+                failures.append(("repeat", C, R))
+            del wd2, ws2
         w = staple_posterior(d, coef, base)
         rw = staple_posterior_plain(d, coef, base)
         tol_w, (xwd, tol_wd), (xws, tol_ws), (rwd, rws) = _staple_tols(d, coef, base, rw)
@@ -1287,6 +1363,12 @@ def phase_consensus(rec, seed, experts, labels):
         f"{stages['staple_ms']:.1f} ms ({iters} iterations, "
         f"{stages['staple_ms_per_iteration']:.3f} ms an iteration), dice "
         f"{stages['dice_ms']:.1f} ms; loading the 4 x 10 .npz {stages['snapshot_load_4x10_npz_ms']:.1f} ms")
+    t = _sync()
+    staple._ones(lbls.reshape(CONS_CASES, CONS_ATLASES, -1))
+    stages["staple_ones_ms"] = (_sync() - t) * 1e3
+    log(f"[consensus] counting the ones of the group's decisions: {stages['staple_ones_ms']:.2f} ms, "
+        f"once in the STAPLE stage")
+    res["em_iteration"] = _em_iteration_split(lbls.reshape(CONS_CASES, CONS_ATLASES, -1), iters)
     del lbls, dps, exp_t, dp_cons, st, fixed
     torch.cuda.empty_cache()
     res["profile"] = _profile("consensus evaluate 4x30", lambda: evaluate_consensus(snap, device=DEV))
@@ -1317,6 +1399,65 @@ def phase_consensus(rec, seed, experts, labels):
     shutil.rmtree(out, ignore_errors=True)
     if faults:
         raise AssertionError(f"the card disagrees with the CPU on the consensus: {faults}")
+
+
+def _em_iteration_split(d, iters):
+    """Where an iteration of the EM loop goes on a group's decisions d (C,
+    R, V): the loop as `staple_consensus_batch` runs it (host clock, its
+    passes and the posterior); one K4 pass (CUDA events); the same loop
+    with K4's sums fixed (the p/q/coef update ops and the host's read of
+    the active flags every SYNC_EVERY passes, host clock), again with one
+    read at the end (the reads' share), and under torch.profiler (the
+    update ops' device time)."""
+    import torch
+
+    from deep_staple_torch.consensus import staple
+    from deep_staple_torch.consensus.staple_fused import staple_em_iter
+
+    C = d.shape[0]
+    ones = staple._ones(d)
+    prior = staple.priors(d, ones=ones)
+    passes = staple.SYNC_EVERY * -(-max(iters) // staple.SYNC_EVERY)
+    t = _sync()
+    staple._em_loop(d, prior, 200, 1e-7, staple.SYNC_EVERY, ones=ones)
+    loop_ms = (_sync() - t) * 1e3
+    p0 = torch.full(ones.shape, 0.99999, device=d.device)
+    coef, base = staple._coefs(p0, p0, torch.log(prior) - torch.log1p(-prior))
+    active = torch.ones(C, dtype=torch.bool, device=d.device)
+    saved = staple_em_iter.launches
+    k4_ms = timed_ms(lambda: staple_em_iter(d, coef, base, active), reps=10)
+    wd, ws = staple_em_iter(d, coef, base, active)
+    staple_em_iter.launches = saved
+
+    def fixed_loop(sync_every):
+        # epsilon -1 never stops a case: exactly `passes` passes
+        return staple._em_loop(d, prior, passes, -1.0, sync_every, em_iter=lambda *_: (wd, ws),
+                                posterior=lambda *_: None, ones=ones)
+
+    fixed_loop(staple.SYNC_EVERY)
+    t = _sync()
+    fixed_loop(staple.SYNC_EVERY)
+    rest_ms = (_sync() - t) * 1e3
+    t = _sync()
+    fixed_loop(passes)
+    one_read_ms = (_sync() - t) * 1e3
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fixed_loop(staple.SYNC_EVERY)
+        torch.cuda.synchronize()
+    update_dev_ms = sum(r[0] for r in _profile_rows(prof))
+    out = {"passes": passes, "iterations": iters, "loop_ms": loop_ms,
+           "ms_per_pass": loop_ms / passes, "k4_ms": k4_ms,
+           "rest_ms_per_pass": rest_ms / passes,
+           "host_reads_ms_per_pass": (rest_ms - one_read_ms) / passes,
+           "update_device_ms_per_pass": update_dev_ms / passes}
+    log(f"[consensus] an EM iteration of the {tuple(d.shape)} group: the loop {loop_ms:.2f} ms over "
+        f"{passes} passes and the posterior ({out['ms_per_pass']:.3f} ms a pass); K4 {k4_ms:.3f} ms "
+        f"a pass; the rest {out['rest_ms_per_pass']:.3f} ms a pass (K4's sums fixed), of which the "
+        f"host's reads every {staple.SYNC_EVERY} passes {out['host_reads_ms_per_pass']:.3f} and the "
+        f"update ops' device time {out['update_device_ms_per_pass']:.3f}")
+    return out
 
 
 # ----------------------------------------------------------------- times
@@ -1434,12 +1575,14 @@ def _staple_times(gen):
                 lambda: staple_em_iter(d, coef, base, active),
                 lambda: staple_em_iter_plain(d, coef, base), library,
                 C * R * V + 4 * C * (2 * R + 1) + C, C * V * (4 * R + STAPLE_OPS_PER_VOXEL))}
+            row["device_ms"] = graph_ms(lambda: staple_em_iter(d, coef, base, active))
             rows["shapes"].append(row)
             if C == CONS_CASES and R == CONS_ATLASES:
                 rows["consensus"]["float32"].append(row)
             log(f"[times] {'staple_em_iter':24s} {'float32':8s} {str((C, R, V)):22s}    "
                 f"kernel {row['ms']:8.3f} ms bound {row['bound_ms']:7.3f} ms ({row['bound_by']}) "
-                f"plain {row['plain_ms']:8.3f} ms library {row['library_ms']:8.3f} ms")
+                f"plain {row['plain_ms']:8.3f} ms library {row['library_ms']:8.3f} ms; device time "
+                f"{row['device_ms']:.4f} ms")
             del d, coef, base, df
             torch.cuda.empty_cache()
     return rows
@@ -1487,6 +1630,7 @@ def summary_line(rec):
         }
         if name == "staple_em_iter":
             entry["per_shape"] = rows.get("shapes", [])
+            entry["device_ms"] = sum(r["device_ms"] for r in rows.get("consensus", {}).get("float32", []))
         if name == "sep_warp_pass":
             entry["library_note"] = ("no single PyTorch call computes one pass's in-row "
                                      "gather, int12 lerp and 2-bit code")

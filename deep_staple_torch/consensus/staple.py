@@ -66,12 +66,13 @@ def _ones(d):
 
 
 def _em_loop(d, prior, max_iterations: int, epsilon: float, sync_every: int,
-             em_iter=staple_em_iter, posterior=staple_posterior):
-    """EM over decisions d (C, R, V) uint8 with priors (C,) float32.
+             em_iter=staple_em_iter, posterior=staple_posterior, ones=None):
+    """EM over decisions d (C, R, V) uint8 with priors (C,) float32; `ones`
+    is `_ones(d)` where the caller has it already.
     -> (p, q (C, R), w (C, V), iterations (C,) int32)."""
     C, R, V = d.shape
     dev = d.device
-    d_sum = _ones(d).float()  # exact: V < 2^24
+    d_sum = (_ones(d) if ones is None else ones).float()  # exact: V < 2^24
     log_prior_odds = torch.log(prior) - torch.log1p(-prior)
     p = torch.full((C, R), 0.99999, device=dev)
     q = torch.full((C, R), 0.99999, device=dev)
@@ -94,10 +95,11 @@ def _em_loop(d, prior, max_iterations: int, epsilon: float, sync_every: int,
     return p, q, posterior(d, coef, base), iters
 
 
-def priors(d, confidence_weight: float = 1.0):
+def priors(d, confidence_weight: float = 1.0, ones=None):
     """The foreground prior of each case of d (C, R, V): confidence_weight
-    times the mean decision, clipped to [1e-7, 1 - 1e-7] -> (C,) float32."""
-    mean = _ones(d).sum(dim=1).float() / float(d.shape[1] * d.shape[2])
+    times the mean decision, clipped to [1e-7, 1 - 1e-7] -> (C,) float32;
+    `ones` is `_ones(d)` where the caller has it already."""
+    mean = (_ones(d) if ones is None else ones).sum(dim=1).float() / float(d.shape[1] * d.shape[2])
     return torch.clamp(confidence_weight * mean, 1e-7, 1 - 1e-7)
 
 
@@ -126,7 +128,9 @@ def staple_consensus_batch(label_stacks, max_iterations: int = 200, epsilon: flo
     spatial = tuple(stacks.shape[2:])
     d = stacks.reshape(C, R, -1)
     sync_every = SYNC_EVERY if d.device.type == "cuda" else 1
-    p, q, w, iters = _em_loop(d, priors(d, confidence_weight), max_iterations, epsilon, sync_every)
+    ones = _ones(d)  # counted once: the prior and the M-step's q both need them
+    p, q, w, iters = _em_loop(d, priors(d, confidence_weight, ones), max_iterations, epsilon,
+                              sync_every, ones=ones)
     return StapleResult(
         consensus=(w > threshold).to(torch.int32).reshape((C,) + spatial),
         probabilities=w, sensitivities=p, specificities=q, iterations=iters,

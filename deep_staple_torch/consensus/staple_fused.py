@@ -13,34 +13,67 @@ stores bfloat16).
 
   * `staple_em_iter` is K4's wrapper (`csrc/staple_em.cu`): a CPU tensor
     takes `staple_em_iter_plain`; a CUDA tensor launches the kernel on the
-    current stream or raises. Its sums have a fixed order (no atomics), so a
-    run repeats bit for bit.
+    current stream or raises. Its sums have a fixed order (no float
+    atomics), so a run repeats bit for bit.
   * `staple_posterior` launches the same kernel in its E-only form and
     writes w (C, V); `staple_posterior_plain` is its plain version.
   * `staple_em_iter.launches` counts the launches of both.
+  * The wrappers size their scratch by the kernel's own plan
+    (`kernel_tile_plan`, from `staple_tile_plan` in the source). `tile_plan`
+    mirrors it in Python, a function of (C, R, V) alone, so that the CPU
+    tests can check that it covers every voxel once within the shared
+    memory of an SM; `chip_smoke.py` holds the two equal on the card.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from ..ops import cuda_build
 
 MAX_RATERS = 128
-TILE = 256  # voxels a block handles at once (`kTile` in the source)
-TILES_PER_BLOCK = 8  # on average; block b takes the tiles b, b + blocks, ...
+THREADS = 256  # a block (`kThreads`)
+SMS = 132  # an H100 SXM's SMs: the blocks a case make one wave of them (`kSMs`)
+STATIC_SMEM = 4 * MAX_RATERS + 4 * 8 * (MAX_RATERS + 1) + 16  # s_coef, s_red, s_last
+
+
+class StapleTile(NamedTuple):
+    """The tiling of one pass (`StapleTile` / `Plan` in `csrc/staple_em.cu`)."""
+
+    rows: int  # rows of decisions a thread holds in registers: R rounded up to even; 0 above 32
+    tile: int  # voxels of each rater row one stage of the ring holds
+    stages: int  # stages of each warp's ring
+    blocks_per_sm: int  # resident blocks an SM the launch bounds and shared memory allow
+    ntiles: int  # tiles a case
+    nblk: int  # blocks a case; block b takes the tiles b, b + nblk, ...
+    smem: int  # dynamic shared bytes a block
+
+
+def tile_plan(C: int, R: int, V: int) -> StapleTile:
+    """K4's tiling of (C, R, V) decisions, as the kernel computes it."""
+    rows = R + (R & 1) if R <= 32 else 0
+    tile = 1024 if rows else 256
+    stages, per_sm = (2, 1) if rows == 0 else (4, 2) if rows <= 16 else (2, 3)
+    ntiles = -(-V // tile)
+    nblk = min(ntiles, -(-(SMS * per_sm) // C))
+    smem = stages * rows * tile if rows else stages * R * tile + (R + 1) * THREADS * 4
+    return StapleTile(rows, tile, stages, per_sm, ntiles, nblk, smem)
 
 
 def load_library():
     lib = cuda_build.load("staple_em")
     if not hasattr(lib, "error_string"):
         vp, ll = ctypes.c_void_p, ctypes.c_longlong
-        lib.staple_em_iter.argtypes = [vp, vp, vp, vp, vp, vp, ll, ll, ll, ll, vp]
+        lib.staple_em_iter.argtypes = [vp, vp, vp, vp, vp, vp, vp, ll, ll, ll, ll, vp]
         lib.staple_em_iter.restype = ctypes.c_int
         lib.staple_posterior.argtypes = [vp, vp, vp, vp, ll, ll, ll, ll, vp]
         lib.staple_posterior.restype = ctypes.c_int
+        lib.staple_tile_plan.argtypes = [ll, ll, ll, ctypes.POINTER(ll)]
+        lib.staple_tile_plan.restype = None
         lib.staple_error_string.argtypes = [ctypes.c_int]
         lib.staple_error_string.restype = ctypes.c_char_p
         lib.error_string = lib.staple_error_string
@@ -85,9 +118,25 @@ def _on_cuda(d, coef, base) -> bool:
     return True
 
 
-def _blocks(V: int) -> int:
-    """Blocks a case: a fixed function of V, so the order of the sums is."""
-    return -(-(-(-V // TILE)) // TILES_PER_BLOCK)
+@functools.lru_cache(maxsize=None)
+def kernel_tile_plan(C: int, R: int, V: int) -> StapleTile:
+    """The plan as the built kernel computes it (needs the library)."""
+    out = (ctypes.c_longlong * 7)()
+    load_library().staple_tile_plan(C, R, V, out)
+    return StapleTile(*(int(x) for x in out))
+
+
+_tickets: dict = {}
+
+
+def _zeroed_tickets(C: int, device, stream) -> torch.Tensor:
+    """(C,) int32 ticket counters for the passes on `stream`: zeroed once;
+    each pass's last block of a case leaves its counter at zero again."""
+    key = (device.index, stream.cuda_stream)
+    t = _tickets.get(key)
+    if t is None or t.numel() < C:
+        t = _tickets[key] = torch.zeros(max(C, 64), dtype=torch.int32, device=device)
+    return t
 
 
 def staple_em_iter(d, coef, base, active):
@@ -103,13 +152,15 @@ def staple_em_iter(d, coef, base, active):
             active.device != d.device or not active.is_contiguous():
         raise ValueError(f"active must be contiguous bool ({C},) on {d.device}, got "
                          f"{active.dtype} {tuple(active.shape)} on {active.device}")
-    nblk = _blocks(V)
-    partial = torch.empty((C, nblk, R + 1), dtype=torch.float32, device=d.device)
+    nblk = kernel_tile_plan(C, R, V).nblk
+    partial = torch.empty((C, R + 1, nblk), dtype=torch.float32, device=d.device)
     sums = torch.empty((C, R + 1), dtype=torch.float32, device=d.device)
+    stream = torch.cuda.current_stream(d.device)
+    tickets = _zeroed_tickets(C, d.device, stream)
     lib = load_library()
     err = lib.staple_em_iter(d.data_ptr(), coef.data_ptr(), base.data_ptr(),
-                             active.data_ptr(), partial.data_ptr(), sums.data_ptr(),
-                             C, R, V, nblk, torch.cuda.current_stream(d.device).cuda_stream)
+                             active.data_ptr(), partial.data_ptr(), tickets.data_ptr(),
+                             sums.data_ptr(), C, R, V, nblk, stream.cuda_stream)
     cuda_build.check(lib, err, "staple_em_iter")
     staple_em_iter.launches += 1
     return sums[:, :R], sums[:, R]
@@ -122,7 +173,7 @@ def staple_posterior(d, coef, base):
     if not _on_cuda(d, coef, base):
         return staple_posterior_plain(d, coef, base)
     C, R, V = d.shape
-    nblk = _blocks(V)
+    nblk = kernel_tile_plan(C, R, V).nblk
     w = torch.empty((C, V), dtype=torch.float32, device=d.device)
     lib = load_library()
     err = lib.staple_posterior(d.data_ptr(), coef.data_ptr(), base.data_ptr(), w.data_ptr(),

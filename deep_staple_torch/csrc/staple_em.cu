@@ -12,23 +12,46 @@
 // What bounds it: bytes. One pass reads R * V bytes of decisions and does
 // about 4 * R * V operations: at R = 30 and V = 256 * 256 * 100 that is
 // 196.6 MB, 0.059 ms at 3.35 TB/s, against 0.012 ms of float32 operations.
+// The bytes arrive only as fast as enough of them are in flight, and each
+// byte costs the SM a few instructions twice (the E-step and the M-step), so
+// the design keeps tens of KB of loads in flight on every SM and spends as
+// few instructions a byte as it can.
 //
-// What the design does about it: D is read once a pass, as bytes (0/1 is
-// exact in uint8: a quarter of float32, half of the TPU kernel's bfloat16),
-// with no padding and no copy. The grid is (blocks, C); block b takes the
-// tiles b, b + blocks, ... of kTile voxels, so the blocks running at one time
-// read one contiguous run of each rater row. Per tile the block stages R x
-// kTile bytes of D in shared memory (32 KB at R = 128), 16 bytes a thread
-// where the rows are 16-byte aligned (V % 16 == 0, as at full size), else a
-// byte a thread; every load of the tile is in flight at once. Then thread j
-// sums coef_r * d_rj over the raters in order and takes w_j (the E-step).
-// Then warp k takes the rows k, k + 8, ... (row R stands for the w sum) and
-// adds d_rj * w_j of the tile into one register a row (the M-step). At the
-// block's end each row's lanes are reduced by shuffles in a fixed order, and
-// the block writes one float32 row of R + 1 partial sums. A second kernel
-// sums each (c, r) over the blocks in a fixed order. There are no atomics:
-// the same inputs give the same sums on every run, so the EM loop's stop
-// test (delta > epsilon, sensitive at 1e-7) sees the same numbers.
+// The design (`StapleTile` names every size; `tile_plan` in
+// consensus/staple_fused.py mirrors it):
+//   * A tile is `tile` voxels of every rater row: 1,024 at R <= 32 (at most
+//     32 KB), 256 above. Block b of case c walks the tiles b, b + nblk, ...;
+//     nblk is a function of (C, R) and V: one wave of the blocks an SM holds
+//     over 132 SMs. Each of its 8 warps takes its own slice of each tile (128
+//     voxels of every row; 32 at R > 32) through its own ring of `stages`
+//     slices in shared memory, filled by 16-byte cp.async.cg where the rows
+//     are 16-byte aligned (V % 16 == 0, as at full size; src-size 0 past V),
+//     else by byte loads. A warp waits only for its own copies (cp.async
+//     wait, then __syncwarp): no block barrier in the loop.
+//   * At R <= 32 a thread owns 4 consecutive voxels of a slice and reads
+//     one 32-bit word of each rater row (one shared load for 4 voxels). The
+//     form is compiled for R rounded up to even (an odd R's last row is
+//     zeros with coef 0): with the row count known, no branch splits the
+//     rows, and the R + 1 sums stay in registers. A runtime row count cost
+//     20-25% (one basic block a row). Up to 16 rows the words stay in
+//     registers from the E-step to the M-step; above, they are read again.
+//     At R > 32 a thread owns one voxel and keeps its R + 1 sums in its own
+//     column of shared memory.
+//   * A byte becomes a float without I2F: __byte_perm puts it into the
+//     mantissa of 2^23 and one FADD takes 2^23 away, exact for 0..255. The
+//     four sigmoids of a thread are computed without a branch and masked past
+//     V by an exact 0 / 1 factor.
+//   * At its end a block reduces each sum over its threads (shuffles in a
+//     fixed tree, then its 8 warps in order) into one row of partials; the
+//     last block of a case to finish (an integer ticket) sums the partials
+//     of every block in the order of the block index and resets the ticket.
+//     No float atomics: the same inputs give the same sums on every run, so
+//     the EM loop's stop test (delta > epsilon, sensitive at 1e-7) sees the
+//     same numbers.
+//
+// What still bounds it: the SM's issue. A decision byte costs about 6
+// instructions (PRMT, FADD and FFMA in the E-step and again in the M-step),
+// a voxel its sigmoid; the HBM rate is not reached.
 //
 // Cases whose flag in `active` is 0 are skipped (their EM has stopped); their
 // sums are left as they were. The E-only form writes w (C, V) for the
@@ -41,185 +64,349 @@
 
 #include <cuda_runtime.h>
 
-#include <climits>
 #include <cstdint>
 
 namespace {
 
-constexpr int kTile = 256;  // voxels of a tile = threads of a block
-constexpr int kWarps = kTile / 32;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxR = 128;
-constexpr int kRowsPerWarp = (kMaxR + 1 + kWarps - 1) / kWarps;  // rows 0..R over 8 warps
-constexpr int kReduceThreads = 256;
+constexpr int kSMs = 132;  // of an H100 SXM: the plan is a function of the shape, not of the card
 
-__device__ __forceinline__ float byte_at(uint32_t word, int i) {
-  return static_cast<float>((word >> (8 * i)) & 0xFFu);
+// The tiling of one form of the kernel, chosen by R: `rows` rows of
+// decisions a thread holds in registers, R rounded up to even (an odd R's
+// last row is zeros with coef 0); 0 for the shared-memory accumulators of
+// R > 32.
+template <int kRows>
+struct StapleTile {
+  static constexpr int tile = kRows ? 1024 : 256;  // voxels of a row a stage holds
+  static constexpr int vpt = tile / kThreads;      // voxels a thread owns in a tile
+  // Measured on the card: up to 16 rows, 2 blocks an SM at 88 registers
+  // beat 3 at 80; above, 3 blocks of 2 stages beat 2 of 3.
+  static constexpr int stages = kRows == 0 ? 2 : kRows <= 16 ? 4 : 2;
+  static constexpr int blocks_per_sm = kRows == 0 ? 1 : kRows <= 16 ? 2 : 3;
+  static constexpr long long smem(long long R) {  // dynamic shared bytes a block
+    return kRows ? stages * kRows * tile : stages * R * tile + (R + 1) * kThreads * 4;
+  }
+};
+
+struct Plan {
+  int rows, tile, stages, blocks_per_sm;
+  long long ntiles, nblk, smem;
+};
+
+template <int kRows>
+Plan plan_of(long long C, long long R, long long V) {
+  using T = StapleTile<kRows>;
+  Plan p{kRows, T::tile, T::stages, T::blocks_per_sm, (V + T::tile - 1) / T::tile, 0, T::smem(R)};
+  const long long wave = (static_cast<long long>(kSMs) * T::blocks_per_sm + C - 1) / C;
+  p.nblk = p.ntiles < wave ? p.ntiles : wave;
+  return p;
 }
 
-// Stage tile t of case c's rows in s_d (R rows of kTile bytes), zeros past V.
-template <bool kAligned>
-__device__ __forceinline__ void stage_tile(const uint8_t* __restrict__ dc, uint8_t* s_d, int R,
-                                           int64_t V, int64_t t) {
-  const int64_t v0 = t * kTile;
-  if (kAligned) {  // V % 16 == 0: a 16-byte piece lies wholly before V or after it
-    constexpr int kPieces = kTile / 16;
-#pragma unroll 4
-    for (int k = threadIdx.x; k < R * kPieces; k += kTile) {
-      const int r = k / kPieces;
-      const int col = (k % kPieces) * 16;
-      uint4 x = make_uint4(0u, 0u, 0u, 0u);
-      if (v0 + col < V) x = *reinterpret_cast<const uint4*>(dc + static_cast<int64_t>(r) * V + v0 + col);
-      *reinterpret_cast<uint4*>(s_d + r * kTile + col) = x;
-    }
-  } else {
-    const int64_t v = v0 + threadIdx.x;
-#pragma unroll 8
-    for (int r = 0; r < R; ++r)
-      s_d[r * kTile + threadIdx.x] = v < V ? dc[static_cast<int64_t>(r) * V + v] : 0;
+// The forms of the kernel: one for each even row count up to 32, one above.
+#define K4_FORMS(F) F(2) F(4) F(6) F(8) F(10) F(12) F(14) F(16) F(18) F(20) F(22) F(24) \
+  F(26) F(28) F(30) F(32)
+
+Plan plan(long long C, long long R, long long V) {
+  switch (R + (R & 1)) {
+#define K4_PLAN(n) case n: return plan_of<n>(C, R, V);
+    K4_FORMS(K4_PLAN)
+#undef K4_PLAN
+    default: return plan_of<0>(C, R, V);
   }
 }
 
+// Byte k of `word` as a float, exactly: 0x4B0000bb is the float 2^23 + bb.
+__device__ __forceinline__ float byte_f(uint32_t word, int k) {
+  return __uint_as_float(__byte_perm(word, 0x4B000000u, 0x7650u + k)) - 8388608.f;
+}
+
+__device__ __forceinline__ float sigmoid(float t) { return 1.f / (1.f + expf(-t)); }
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// Start copying this warp's slice of tile t of case c (kRows rows of
+// kSlice bytes from voxel v0; rows from R on and voxels from V on are
+// zeros) into its stage st. The warp's lanes share the copies; a lane reads
+// bytes another lane copied, hence the __syncwarp() after the wait. kRows =
+// 0: R rows.
+template <int kRows, int kSlice>
+__device__ __forceinline__ void load_slice(const uint8_t* __restrict__ dc, uint8_t* st, int R,
+                                           int64_t V, int64_t v0, int lane, bool aligned) {
+  const int rows = kRows ? kRows : R;
+  if (aligned) {  // V % 16 == 0: a 16-byte piece lies wholly before V or after it
+    constexpr int kPieces = kSlice / 16;
+#pragma unroll 1  // unrolled, ptxas keeps every piece's address live and the 30-row form spills
+    for (int k = lane; k < rows * kPieces; k += 32) {
+      const int r = k / kPieces;
+      const int col = (k % kPieces) * 16;
+      const int64_t v = v0 + col;
+      const bool in = v < V && r < R;
+      cp_async16(st + r * kSlice + col, in ? dc + static_cast<int64_t>(r) * V + v : dc, in ? 16 : 0);
+    }
+  } else {
+    for (int k = lane; k < rows * kSlice; k += 32) {
+      const int r = k / kSlice;
+      const int64_t v = v0 + k % kSlice;
+      st[k] = v < V && r < R ? dc[static_cast<int64_t>(r) * V + v] : 0;
+    }
+  }
+}
+
+// Sum v over the 32 lanes of a warp in a fixed tree; lane 0 holds the sum.
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
 // kPosterior: write w (C, V) and nothing else. Otherwise write partial
-// (C, gridDim.x, R + 1): per block, wd_0 .. wd_{R-1} and ws.
-template <bool kPosterior, bool kAligned>
-__global__ void __launch_bounds__(kTile) staple_em_kernel(
+// (C, R + 1, nblk) (per block, wd_0 .. wd_{R-1} and ws) and, from the last
+// block of each case, sums (C, R + 1).
+template <int kRows, bool kPosterior>
+__global__ void __launch_bounds__(kThreads, StapleTile<kRows>::blocks_per_sm) staple_em_kernel(
     const uint8_t* __restrict__ d, const float* __restrict__ coef,
-    const float* __restrict__ base, const uint8_t* __restrict__ active,
-    float* __restrict__ out, int R, int64_t V) {
+    const float* __restrict__ base, const uint8_t* __restrict__ active, float* __restrict__ w_out,
+    float* __restrict__ partial, unsigned* __restrict__ tickets, float* __restrict__ sums, int R,
+    int64_t V, int64_t nblk, bool aligned) {
+  using T = StapleTile<kRows>;
+  constexpr int kTile = T::tile;
+  constexpr int kStages = T::stages;
   const int c = blockIdx.y;
-  if (!kPosterior && !active[c]) return;  // uniform over the block
-  extern __shared__ __align__(16) uint8_t s_d[];  // R rows of kTile bytes
-  __shared__ __align__(16) float s_w[kTile];
+  if (!kPosterior && !active[c]) return;  // uniform over the case
+  constexpr int kSlice = kTile / kWarps;  // voxels of a row a warp takes from each tile
+  const int rows = kRows ? kRows : R;  // rows of a stage
+  extern __shared__ __align__(16) uint8_t s_ring[];  // kWarps x kStages x rows x kSlice bytes
+  float* s_acc = reinterpret_cast<float*>(s_ring + kStages * rows * kTile);  // R > 32: (R + 1) x kThreads
   __shared__ float s_coef[kMaxR];
+  __shared__ float s_red[kWarps][kMaxR + 1];
+  __shared__ bool s_last;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  for (int r = tid; r < R; r += kTile) s_coef[r] = coef[static_cast<int64_t>(c) * R + r];
-  const float b = base[c];
+  uint8_t* ring = s_ring + warp * kStages * rows * kSlice;  // this warp's own ring
   const uint8_t* dc = d + static_cast<int64_t>(c) * R * V;
   const int64_t ntiles = (V + kTile - 1) / kTile;
-
-  float acc[kRowsPerWarp];
+  const int64_t mine = (ntiles - blockIdx.x + nblk - 1) / nblk;  // >= 1: blockIdx.x < nblk <= ntiles
+  // Voxel v of a tile's slice: (blockIdx.x + i * nblk) * kTile + warp * kSlice + ...
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * kTile + warp * kSlice;
+  const int64_t step = nblk * kTile;
 #pragma unroll
-  for (int k = 0; k < kRowsPerWarp; ++k) acc[k] = 0.f;
+  for (int s = 0; s < kStages - 1; ++s) {  // the first copies go out before anything waits
+    if (s < mine)
+      load_slice<kRows, kSlice>(dc, ring + s * rows * kSlice, R, V, first + s * step, lane, aligned);
+    cp_async_commit();  // a group a stage, empty or not, so the wait below counts stages
+  }
+  for (int r = tid; r < rows; r += kThreads) s_coef[r] = r < R ? coef[static_cast<int64_t>(c) * R + r] : 0.f;
+  if (!kRows && !kPosterior)
+    for (int k = tid; k < (R + 1) * kThreads; k += kThreads) s_acc[k] = 0.f;
+  __syncthreads();  // s_coef and s_acc are set; from here each warp walks its tiles alone
+  const float b = base[c];
 
-  for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    stage_tile<kAligned>(dc, s_d, R, V, t);
-    __syncthreads();
-    // E-step: t_j = base + sum_r coef_r d_rj, the raters in order.
-    const int64_t v = t * kTile + tid;
-    float s = 0.f;
-#pragma unroll 8
-    for (int r = 0; r < R; ++r) s = fmaf(s_coef[r], static_cast<float>(s_d[r * kTile + tid]), s);
-    const float w = v < V ? 1.f / (1.f + expf(-(b + s))) : 0.f;
-    if (kPosterior) {
-      if (v < V) out[static_cast<int64_t>(c) * V + v] = w;
-      __syncthreads();  // s_d is refilled by the next tile
-      continue;
-    }
-    s_w[tid] = w;
-    __syncthreads();
-    // M-step: lane l holds the tile's voxels 8l .. 8l + 7.
-    const float4 wa = *reinterpret_cast<const float4*>(&s_w[lane * 8]);
-    const float4 wb = *reinterpret_cast<const float4*>(&s_w[lane * 8 + 4]);
+  float acc[kRows ? kRows + 1 : 1];
 #pragma unroll
-    for (int k = 0; k < kRowsPerWarp; ++k) {
-      const int r = warp + k * kWarps;
-      if (r < R) {
-        const uint2 q = *reinterpret_cast<const uint2*>(&s_d[r * kTile + lane * 8]);
-        float part = byte_at(q.x, 0) * wa.x;
-        part = fmaf(byte_at(q.x, 1), wa.y, part);
-        part = fmaf(byte_at(q.x, 2), wa.z, part);
-        part = fmaf(byte_at(q.x, 3), wa.w, part);
-        part = fmaf(byte_at(q.y, 0), wb.x, part);
-        part = fmaf(byte_at(q.y, 1), wb.y, part);
-        part = fmaf(byte_at(q.y, 2), wb.z, part);
-        part = fmaf(byte_at(q.y, 3), wb.w, part);
-        acc[k] += part;
-      } else if (r == R) {
-        acc[k] += ((wa.x + wa.y) + (wa.z + wa.w)) + ((wb.x + wb.y) + (wb.z + wb.w));
+  for (int r = 0; r < (kRows ? kRows + 1 : 1); ++r) acc[r] = 0.f;
+
+  for (int64_t i = 0; i < mine; ++i) {
+    cp_async_wait<kStages - 2>();
+    __syncwarp();  // slice i is in; every lane is done with slice i - 1, whose stage refills now
+    const int64_t ahead = i + kStages - 1;
+    if (ahead < mine)
+      load_slice<kRows, kSlice>(dc, ring + (ahead % kStages) * rows * kSlice, R, V,
+                                first + ahead * step, lane, aligned);
+    cp_async_commit();
+    const uint8_t* st = ring + (i % kStages) * rows * kSlice;
+    const int64_t v = first + i * step + lane * T::vpt;  // this thread's first voxel
+
+    if constexpr (kRows != 0) {
+      // E-step: t_j = base + sum_r coef_r d_rj, the raters in order; 4 voxels
+      // a word. The row count is known here: no branch splits the rows, so
+      // ptxas interleaves them. A zero row adds exact zeros.
+      const uint8_t* col = st + lane * 4;
+      float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const uint32_t word = *reinterpret_cast<const uint32_t*>(col + r * kSlice);
+        const float cr = s_coef[r];
+        s0 = fmaf(cr, byte_f(word, 0), s0);
+        s1 = fmaf(cr, byte_f(word, 1), s1);
+        s2 = fmaf(cr, byte_f(word, 2), s2);
+        s3 = fmaf(cr, byte_f(word, 3), s3);
+      }
+      // The four sigmoids without a branch (zeros past V give a finite t);
+      // voxels past V are masked by an exact 0 / 1 factor.
+      const float w0 = sigmoid(b + s0) * (v < V ? 1.f : 0.f);
+      const float w1 = sigmoid(b + s1) * (v + 1 < V ? 1.f : 0.f);
+      const float w2 = sigmoid(b + s2) * (v + 2 < V ? 1.f : 0.f);
+      const float w3 = sigmoid(b + s3) * (v + 3 < V ? 1.f : 0.f);
+      if constexpr (kPosterior) {
+        float* wc = w_out + static_cast<int64_t>(c) * V;
+        if ((V & 3) == 0 && v + 3 < V) {
+          *reinterpret_cast<float4*>(wc + v) = make_float4(w0, w1, w2, w3);
+        } else {
+          if (v < V) wc[v] = w0;
+          if (v + 1 < V) wc[v + 1] = w1;
+          if (v + 2 < V) wc[v + 2] = w2;
+          if (v + 3 < V) wc[v + 3] = w3;
+        }
+      } else {
+        // M-step: wd_r += sum of this thread's 4 voxels d_rj w_j. Up to 16
+        // rows the compiler keeps the E-step's words in registers. Above, it
+        // would too, and 30 words with 31 sums spill at 128 registers: there
+        // the __syncwarp() orders shared memory, so each word is read again.
+        if constexpr (kRows > 16) __syncwarp();
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          const uint32_t word = *reinterpret_cast<const uint32_t*>(col + r * kSlice);
+          float part = byte_f(word, 0) * w0;
+          part = fmaf(byte_f(word, 1), w1, part);
+          part = fmaf(byte_f(word, 2), w2, part);
+          part = fmaf(byte_f(word, 3), w3, part);
+          acc[r] += part;
+        }
+        acc[kRows] += (w0 + w1) + (w2 + w3);
+      }
+    } else {
+      // R > 32: one voxel a thread, its accumulators in its column of s_acc.
+      float s = 0.f;
+      for (int r = 0; r < R; ++r) s = fmaf(s_coef[r], byte_f(st[r * kSlice + lane], 0), s);
+      const float w = sigmoid(b + s) * (v < V ? 1.f : 0.f);
+      if constexpr (kPosterior) {
+        if (v < V) w_out[static_cast<int64_t>(c) * V + v] = w;
+      } else {
+        for (int r = 0; r < R; ++r) s_acc[r * kThreads + tid] += byte_f(st[r * kSlice + lane], 0) * w;
+        s_acc[R * kThreads + tid] += w;
       }
     }
-    __syncthreads();  // s_d and s_w are refilled by the next tile
   }
-  if (kPosterior) return;
-  float* row = out + (static_cast<int64_t>(c) * gridDim.x + blockIdx.x) * (R + 1);
+  if constexpr (kPosterior) return;
+
+  // The block's sums: each row over the threads in a fixed order, into
+  // partial[c, r, blockIdx.x].
+  float* part_c = partial + static_cast<int64_t>(c) * (R + 1) * nblk;
+  if constexpr (kRows != 0) {
 #pragma unroll
-  for (int k = 0; k < kRowsPerWarp; ++k) {
-    const int r = warp + k * kWarps;
-    if (r <= R) {
-      float v = acc[k];
+    for (int r = 0; r <= kRows; ++r) {
+      const int row = r == kRows ? R : r;  // the w sum is row R
+      if (r < R || r == kRows) {
+        const float x = warp_sum(acc[r]);
+        if (lane == 0) s_red[warp][row] = x;
+      }
+    }
+    __syncthreads();
+    for (int r = tid; r <= R; r += kThreads) {
+      float x = s_red[0][r];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-      if (lane == 0) row[r] = v;
+      for (int k = 1; k < kWarps; ++k) x += s_red[k][r];
+      part_c[r * nblk + blockIdx.x] = x;
+    }
+  } else {
+    __syncthreads();
+    for (int r = warp; r <= R; r += kWarps) {
+      float x = 0.f;
+#pragma unroll
+      for (int k = 0; k < kThreads / 32; ++k) x += s_acc[r * kThreads + k * 32 + lane];
+      x = warp_sum(x);
+      if (lane == 0) part_c[r * nblk + blockIdx.x] = x;
     }
   }
-}
 
-// sums[c, r] = sum over blocks of partial[c, block, r], in a fixed order:
-// each thread its strided blocks in turn, then a tree over the threads.
-__global__ void __launch_bounds__(kReduceThreads) staple_reduce_kernel(
-    const float* __restrict__ partial, const uint8_t* __restrict__ active,
-    float* __restrict__ sums, int R, int64_t nblk) {
-  const int r = blockIdx.x;
-  const int c = blockIdx.y;
-  if (!active[c]) return;
-  __shared__ float s[kReduceThreads];
-  float v = 0.f;
-  for (int64_t k = threadIdx.x; k < nblk; k += kReduceThreads)
-    v += partial[(static_cast<int64_t>(c) * nblk + k) * (R + 1) + r];
-  s[threadIdx.x] = v;
+  // The last block of the case sums the partials over the blocks in order.
+  __threadfence();  // this thread's partials are visible device-wide before the ticket
   __syncthreads();
-  for (int h = kReduceThreads / 2; h > 0; h >>= 1) {
-    if (threadIdx.x < h) s[threadIdx.x] += s[threadIdx.x + h];
-    __syncthreads();
+  if (tid == 0) s_last = atomicAdd(&tickets[c], 1u) == static_cast<unsigned>(nblk - 1);
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  for (int r = warp; r <= R; r += kWarps) {
+    const float* row = part_c + r * nblk;
+    float x = 0.f;
+#pragma unroll 8  // the loads go out together; the adds keep their order
+    for (int64_t k = lane; k < nblk; k += 32) x += __ldcg(row + k);
+    x = warp_sum(x);
+    if (lane == 0) sums[static_cast<int64_t>(c) * (R + 1) + r] = x;
   }
-  if (threadIdx.x == 0) sums[static_cast<int64_t>(c) * (R + 1) + r] = s[0];
+  if (tid == 0) tickets[c] = 0u;  // ready for the next pass on this stream
 }
 
 int check_sizes(long long C, long long R, long long V, long long nblk) {
   if (C <= 0 || R <= 0 || V <= 0 || nblk <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (R > kMaxR || C > 65535 || nblk > INT_MAX || nblk > (V + kTile - 1) / kTile)
+  if (R > kMaxR || C > 65535 || nblk != plan(C, R, V).nblk)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   return static_cast<int>(cudaSuccess);
 }
 
-// One of the four forms of the kernel: posterior or not, aligned rows or not.
-template <bool kPosterior>
-void launch_em(const void* d, const void* coef, const void* base, const void* active, void* out,
-               long long C, long long R, long long V, long long nblk, cudaStream_t s) {
-  const dim3 grid(static_cast<unsigned>(nblk), static_cast<unsigned>(C));
-  const size_t smem = static_cast<size_t>(R) * kTile;
+template <int kRows, bool kPosterior>
+cudaError_t launch_form(const void* d, const void* coef, const void* base, const void* active,
+                        void* w, void* partial, void* tickets, void* sums, long long C,
+                        long long R, long long V, long long nblk, cudaStream_t s) {
+  auto kernel = &staple_em_kernel<kRows, kPosterior>;
+  const size_t smem = static_cast<size_t>(StapleTile<kRows>::smem(R));
+  // Set on every call: the attribute belongs to the current device.
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (attr != cudaSuccess) return attr;
   const bool aligned = V % 16 == 0 && reinterpret_cast<uintptr_t>(d) % 16 == 0;
-  auto kernel = aligned ? &staple_em_kernel<kPosterior, true> : &staple_em_kernel<kPosterior, false>;
-  kernel<<<grid, kTile, smem, s>>>(static_cast<const uint8_t*>(d), static_cast<const float*>(coef),
-                                   static_cast<const float*>(base),
-                                   static_cast<const uint8_t*>(active), static_cast<float*>(out),
-                                   static_cast<int>(R), V);
+  kernel<<<dim3(static_cast<unsigned>(nblk), static_cast<unsigned>(C)), kThreads, smem, s>>>(
+      static_cast<const uint8_t*>(d), static_cast<const float*>(coef),
+      static_cast<const float*>(base), static_cast<const uint8_t*>(active), static_cast<float*>(w),
+      static_cast<float*>(partial), static_cast<unsigned*>(tickets), static_cast<float*>(sums),
+      static_cast<int>(R), V, nblk, aligned);
+  return cudaGetLastError();
+}
+
+template <bool kPosterior>
+cudaError_t launch_em(const void* d, const void* coef, const void* base, const void* active,
+                      void* w, void* partial, void* tickets, void* sums, long long C, long long R,
+                      long long V, long long nblk, cudaStream_t s) {
+  switch (R + (R & 1)) {
+#define K4_LAUNCH(n)                                                                              \
+  case n:                                                                                         \
+    return launch_form<n, kPosterior>(d, coef, base, active, w, partial, tickets, sums, C, R, V, \
+                                      nblk, s);
+    K4_FORMS(K4_LAUNCH)
+#undef K4_LAUNCH
+    default:
+      return launch_form<0, kPosterior>(d, coef, base, active, w, partial, tickets, sums, C, R, V,
+                                        nblk, s);
+  }
 }
 
 }  // namespace
 
+// The plan of a pass over (C, R, V): out = [rows, tile, stages, blocks an
+// SM, tiles a case, blocks a case, dynamic shared bytes a block].
+extern "C" void staple_tile_plan(long long C, long long R, long long V, long long* out) {
+  const Plan p = plan(C, R, V);
+  const long long v[7] = {p.rows, p.tile, p.stages, p.blocks_per_sm, p.ntiles, p.nblk, p.smem};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
+}
+
 // One EM pass for every active case. d: (C, R, V) uint8; coef: (C, R) f32;
-// base: (C,) f32; active: (C,) uint8; partial: (C, nblk, R + 1) f32 scratch;
-// sums: (C, R + 1) f32, wd in columns 0..R-1 and ws in column R. nblk blocks
-// a case share its tiles of 256 voxels.
+// base: (C,) f32; active: (C,) uint8; partial: (C, R + 1, nblk) f32 scratch;
+// tickets: (C,) uint32 scratch, zero before the call and left zero after it;
+// sums: (C, R + 1) f32, wd in columns 0..R-1 and ws in column R. nblk, the
+// blocks a case `partial` was sized for, must be the plan's
+// (`staple_tile_plan`); the call fails otherwise.
 extern "C" int staple_em_iter(const void* d, const void* coef, const void* base,
-                              const void* active, void* partial, void* sums, long long C,
-                              long long R, long long V, long long nblk, void* stream) {
+                              const void* active, void* partial, void* tickets, void* sums,
+                              long long C, long long R, long long V, long long nblk,
+                              void* stream) {
   (void)cudaGetLastError();  // report this launch's error, not an earlier one
   const int bad = check_sizes(C, R, V, nblk);
   if (bad) return bad;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  launch_em<false>(d, coef, base, active, partial, C, R, V, nblk, s);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  staple_reduce_kernel<<<dim3(static_cast<unsigned>(R + 1), static_cast<unsigned>(C)),
-                         kReduceThreads, 0, s>>>(
-      static_cast<const float*>(partial), static_cast<const uint8_t*>(active),
-      static_cast<float*>(sums), static_cast<int>(R), nblk);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_em<false>(d, coef, base, active, nullptr, partial, tickets, sums,
+                                           C, R, V, nblk, static_cast<cudaStream_t>(stream)));
 }
 
 // The E-step alone: w (C, V) f32 = sigmoid(base + coef . d) for every case.
@@ -229,8 +416,8 @@ extern "C" int staple_posterior(const void* d, const void* coef, const void* bas
   (void)cudaGetLastError();
   const int bad = check_sizes(C, R, V, nblk);
   if (bad) return bad;
-  launch_em<true>(d, coef, base, nullptr, w, C, R, V, nblk, static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_em<true>(d, coef, base, nullptr, w, nullptr, nullptr, nullptr, C,
+                                           R, V, nblk, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* staple_error_string(int code) {

@@ -75,16 +75,29 @@ def _jax_coefs(p, q, prior):
     return coef, base
 
 
-@pytest.mark.parametrize("R,V", [(3, 315), (17, 1001), (6, 1320), (1, 7)])
-def test_em_iteration_plain_matches_pallas(R, V):
+@pytest.mark.parametrize("R,V,agree", [(3, 315, False), (17, 1001, False), (6, 1320, False),
+                                       (1, 7, False), (10, 1025, True), (30, 1023, True),
+                                       (16, 1024, True), (33, 257, True), (128, 255, True),
+                                       (128, 257, True)])
+def test_em_iteration_plain_matches_pallas(R, V, agree):
     """One fused E+M pass: `staple_em_iter_plain` against the Pallas kernel
     (`staple_pallas.em_iteration`, interpret mode), at the same coef and
-    base. Odd V, R = 1, 3, 17 (not a multiple of the TPU's 16)."""
+    base. Odd V, R = 1, 3, 17 (not a multiple of the TPU's 16); R = 128 (the
+    most K4 takes); V one tile of K4's plan +/- 1 (1,024 voxels at R <= 32,
+    256 above) at R on either side of a change of the plan.
+
+    Decisions are independent at 30%, or (`agree`) a 30% truth each rater
+    flips at 5%, as atlas labels are: with many independent raters every
+    posterior falls below 1e-9, where the float32 rounding of t (hundreds in
+    size) alone sets w's relative error."""
     from deep_staple_tpu.consensus.staple_pallas import BLK, em_iteration
     from deep_staple_torch.consensus.staple_fused import staple_em_iter, staple_em_iter_plain
 
     rng = np.random.RandomState(R * 1000 + V)
-    d = (rng.rand(R, V) < 0.3).astype(np.uint8)
+    if agree:
+        d = ((rng.rand(V) < 0.3) ^ (rng.rand(R, V) < 0.05)).astype(np.uint8)
+    else:
+        d = (rng.rand(R, V) < 0.3).astype(np.uint8)
     p = rng.uniform(0.7, 0.999, R).astype(np.float32)
     q = rng.uniform(0.8, 0.9999, R).astype(np.float32)
     coef, base = _jax_coefs(p, q, np.float32(0.3))
@@ -102,6 +115,34 @@ def test_em_iteration_plain_matches_pallas(R, V):
     # The wrapper takes the plain version for a CPU tensor.
     wd2, ws2 = staple_em_iter(*args, torch.ones(1, dtype=torch.bool))
     assert torch.equal(wd, wd2) and torch.equal(ws, ws2)
+
+
+def test_k4_tile_plan_covers_every_voxel_once():
+    """K4's plan (`staple_fused.tile_plan`, the mirror of `StapleTile` in
+    `csrc/staple_em.cu`) over a grid of (C, R, V): block b of a case takes
+    the tiles b, b + nblk, ..., which cover each voxel exactly once; the
+    shared memory of a block fits Hopper's per-block limit and its resident
+    blocks an SM fit the SM."""
+    from deep_staple_torch.consensus import staple_fused as sf
+
+    for C in (1, 2, 4, 7):
+        for R in (1, 3, 10, 16, 17, 30, 32, 33, 64, 65, 127, 128):
+            for V in (1, 255, 256, 257, 1023, 1024, 1025, 4097, 315, 2 ** 20 + 3):
+                plan = sf.tile_plan(C, R, V)
+                assert plan.tile * max(R, plan.rows) <= 32 * 1024  # at most 32 KB of decisions a stage
+                assert 1 <= plan.nblk <= plan.ntiles and plan.ntiles * plan.tile >= V
+                assert plan.tile % sf.THREADS == 0 and plan.tile % 16 == 0
+                covered = np.zeros(V, np.int32)
+                for b in range(plan.nblk):
+                    for t in range(b, plan.ntiles, plan.nblk):
+                        covered[t * plan.tile:(t + 1) * plan.tile] += 1
+                assert (covered == 1).all(), (C, R, V)
+                smem = plan.smem + sf.STATIC_SMEM
+                assert smem <= 232_448, (R, smem)  # the most a block may take on Hopper
+                # an SM's 228 KB, of which each resident block reserves 1 KB
+                assert plan.blocks_per_sm * (smem + 1024) <= 233_472, (R, smem)
+                # One wave: the blocks of all cases fit the card at the planned residency.
+                assert C * plan.nblk <= sf.SMS * plan.blocks_per_sm + C - 1
 
 
 def _assert_staple_close(got, want):
