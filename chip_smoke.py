@@ -108,9 +108,18 @@ EDGE_DW = [
     ((2, 33, 31, 33, 16), 2), ((1, 35, 17, 15, 48), 2), ((1, 17, 15, 17, 6), 2),
     ((1, 2, 1, 3, 8), 2), ((1, 10, 12, 9, 48), 2), ((3, 1, 2, 17, 6), 2),
 ]
-# K1 (one scanline pass) at the three passes of a full-size batch: rows of W
-# lanes, then of H, then of D; and an odd L.
-SEP_EDGE = (4001, 37)
+# The separable warp (K1's three passes, fused) beside TRAIN_BASE: extents of
+# 1 and 2, an odd W; then shapes that cut its tiles raggedly (`tile_plan`:
+# pass X takes up to 1,024 elements of whole W-rows, a multiple of 4 rows
+# for its 16-byte loads, else its scalar loop; passes Y and Z whole H- or
+# D-columns of up to 32 W or (h, w) positions, in equal tiles): a plane of
+# 13,000 positions (406 tiles of 32 and one of 8), 8,192 W-rows in tiles of
+# 112, W = 37 in tiles of 19 and 18; an axis above 128 (D = 200, and D =
+# 1,024); and one tile above 48 KB of shared memory in each pass: W =
+# 30,000 (one 180 KB row), H = 2,000 (204 KB, W in tiles of 17, 17, 16), D
+# = 1,024 at a plane of 72 (147 KB).
+SEP_EDGE = [(1, 1, 1, 1), (2, 3, 5, 1), (1, 2, 1, 2), (1, 7, 9, 37), (2, 5, 100, 130),
+            (1, 200, 7, 10), (1, 1, 2, 30_000), (1, 2, 2_000, 50), (1, 1_024, 8, 9)]
 
 # The consensus stage at full size: the snapshot stores labels at the x2.0
 # eval scale of the 128x128x50 training volume (`deep_staple_tpu/train/
@@ -142,9 +151,16 @@ STAPLE_OPS_PER_VOXEL = 8
 # and its gradients accumulate in float32 in both dtypes.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
-# About 20 integer and float operations per element of a K1 pass (clamp,
-# floor, index, gather, two sign extensions, the lerp, round, select).
-SEP_OPS_PER_ELEM = 20
+# The separable warp an element: its inputs read once (the image, both
+# labels and the three fields, 24 bytes) and its outputs written once (the
+# image and both labels, 12); the kernels move 8 more, the 16-bit
+# intermediate between the passes. About 100 integer and float operations
+# over the three passes (a pass: unnormalize 4, clamp and floor 5, the index
+# 3, two gathers and decodes 4, the lerp 4, round and the code's select 5,
+# the valid test 3, the next quantum 5; pass X's quantization 7 more, pass
+# Z's epilogue 3).
+SEP_BYTES_PER_ELEM = 36
+SEP_OPS_PER_ELEM = 100
 
 KERNELS = {
     "depthwise_conv3d_fwd": ("deep_staple_torch/csrc/depthwise_conv3d.cu",
@@ -223,7 +239,7 @@ def _wrappers():
         "depthwise_conv3d_fwd": conv3d_dw.depthwise_conv3d_fwd,
         "depthwise_conv3d_grad_x": conv3d_dw.depthwise_conv3d_grad_x,
         "depthwise_conv3d_grad_w": conv3d_dw.depthwise_conv3d_grad_w,
-        "sep_warp_pass": sep_warp.sep_warp_pass,
+        "sep_warp_pass": sep_warp.sep_warp_apply,
         "staple_em_iter": staple_fused.staple_em_iter,
     }
 
@@ -404,7 +420,8 @@ def phase_kernels(rec, seed):
 def phase_train_kernels(rec, seed):
     """The three depthwise kernels (forward, grad_x, grad_w) at every shape
     training gives them (batch 8) and the edge shapes, in float32 and
-    bfloat16, and K1 at the pass shapes of a full-size batch and an odd L,
+    bfloat16, and the separable warp (K1's three passes) at a full-size
+    batch with real fields and at edge shapes,
     each against its plain version on the same inputs on the card."""
     import torch
 
@@ -417,7 +434,6 @@ def phase_train_kernels(rec, seed):
         depthwise_conv3d_plain,
         out_extent,
     )
-    from deep_staple_torch.ops.sep_warp import sep_warp_pass, sep_warp_pass_plain
 
     gen = torch.Generator(device=DEV).manual_seed(seed + 1)
     worst = {}
@@ -460,41 +476,75 @@ def phase_train_kernels(rec, seed):
             del x, g, w, got
             torch.cuda.empty_cache()
 
-    for n, L in sorted(set(_sep_pass_shapes())) + [SEP_EDGE]:
-        word, cc = _sep_inputs(gen, n, L)
-        img, code = sep_warp_pass(word, cc, L)
-        ref_img, ref_code = sep_warp_pass_plain(word, cc, L)
-        # Codes exactly; the image (int12 units) to 1 float32 ulp: the kernel
-        # rounds each product and sum as the plain version does, and only
-        # FMA contraction could differ.
-        ulp = torch.nextafter(ref_img.abs(), torch.full_like(ref_img, math.inf)) - ref_img.abs()
-        diff = (img - ref_img).abs()
-        ok = bool(torch.equal(code, ref_code)) and bool((diff <= ulp).all())
-        note("sep_warp_pass", "float32", (n, L), 1, (ok, float(diff.max()), "codes equal, 1 ulp"))
-        del word, cc, img, code, ref_img, ref_code, ulp, diff
+    _check_sep_warp(seed, note)
     rec.setdefault("kernel_check", {}).update(worst)
     if failures:
         raise AssertionError(f"kernel disagrees with its plain version: {failures}")
 
 
-def _sep_pass_shapes():
-    """(rows, L) of K1's three passes over a training batch: along W, H, then D."""
-    B, D, H, W = TRAIN_BASE
-    return [(B * D * H, W), (B * D * W, H), (B * H * W, D)]
-
-
-def _sep_inputs(gen, n, L):
-    """Packed words of a random image in int12 units and random labels, and
-    coordinates that reach past both ends of the row."""
+def _sep_case(seed, shape, params, data=None):
+    """Inputs of the separable warp at `shape` from `seed`: real fields from
+    `draw_augment` + `sep_warp_fields`; the image with the augmentation's
+    noise and the labels of `data` (the synthetic training batch) or random
+    ones."""
     import torch
 
-    from deep_staple_torch.ops.sep_warp import pack_pass
+    from deep_staple_torch.ops.augment import draw_augment
+    from deep_staple_torch.ops.sep_warp import sep_warp_fields
 
-    img = torch.randn((n, L), generator=gen, device=DEV) * 600.0
-    code = torch.randint(0, 4, (n, L), generator=gen, device=DEV, dtype=torch.int32)
-    word = pack_pass(img, code, torch.tensor(1.0, device=DEV))
-    cc = torch.rand((n, L), generator=gen, device=DEV) * (L + 5.0) - 3.0
-    return word, cc
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    draws = draw_augment(gen, shape, params)
+    fields = sep_warp_fields(draws.eff_theta, draws.ctl, shape[1:])
+    if data is None:
+        img = torch.randn(shape, generator=gen, device=DEV) * 3.0
+        lbl, mod = ((torch.rand(shape, generator=gen, device=DEV) < 0.4).to(torch.int32)
+                    for _ in range(2))
+    else:
+        img, lbl, mod = data["image"], data["label"], data["modified_label"]
+    return img + 0.05 * draws.noise, lbl, mod, fields
+
+
+def _check_sep_warp(seed, note):
+    """The separable warp's three kernels against `sep_warp_apply_plain` on
+    the card: at TRAIN_BASE on the synthetic batch with the production
+    augmentation parameters and with strong ones (affine and b-spline in
+    every sample, translation 0.1), and at SEP_EDGE. Labels exactly, the
+    image to 1 float32 ulp (the kernels round each op as torch does; only
+    FMA contraction could differ), two calls bitwise equal; an axis above
+    MAX_AXIS raises."""
+    import torch
+
+    from deep_staple_torch.ops import sep_warp
+    from deep_staple_torch.ops.augment import AugmentParams
+
+    strong = AugmentParams(bspline_probability=1.0, affine_probability=1.0,
+                           add_affine_translation=0.1)
+    data = synthetic_dataset(TRAIN_BASE[0], TRAIN_BASE[1:], seed, DEV)[0]
+    cases = [("production", TRAIN_BASE, AugmentParams(), data), ("strong", TRAIN_BASE, strong, data)]
+    cases += [("strong", shape, strong, None) for shape in SEP_EDGE]
+    for k, (tag, shape, params, d) in enumerate(cases):
+        img, lbl, mod, fields = _sep_case(seed + k, shape, params, d)
+        got = sep_warp.sep_warp_apply(img, lbl, mod, fields)
+        again = sep_warp.sep_warp_apply(img, lbl, mod, fields)
+        ref = sep_warp.sep_warp_apply_plain(img, lbl, mod, fields)
+        ulp = torch.nextafter(ref[0].abs(), torch.full_like(ref[0], math.inf)) - ref[0].abs()
+        diff = (got[0] - ref[0]).abs()
+        ok = bool((diff <= ulp).all()) and torch.equal(got[1], ref[1]) and \
+            torch.equal(got[2], ref[2]) and all(torch.equal(a, b) for a, b in zip(got, again))
+        note("sep_warp_pass", "float32", shape, 1,
+             (ok, float(diff.max()), f"{tag} fields, labels equal, 1 ulp, two calls equal"))
+        del img, lbl, mod, fields, got, again, ref, ulp, diff
+    too_long = (1, 1, 1, sep_warp.MAX_AXIS + 1)
+    z = torch.zeros(too_long, device=DEV)
+    try:
+        sep_warp.sep_warp_apply(z, z.int(), z.int(), sep_warp.SepWarpFields(z, z, z))
+        raised = False
+    except ValueError:
+        raised = True
+    note("sep_warp_pass", "float32", too_long, 1, (raised, 0.0 if raised else math.inf,
+                                                   "an axis above MAX_AXIS raises"))
+    del data, z
+    torch.cuda.empty_cache()
 
 
 def _random_variables(model, seed):
@@ -704,7 +754,7 @@ def _profile(tag, fn):
     busy_ms = sum(r[0] for r in rows)
     ours = {name: sum(r[0] for r in rows if name in r[2]) for name in (
         "dw3d_fwd_kernel", "dw3d_gx2_kernel", "dw3d_gw_kernel", "dw3d_gw_reduce_kernel",
-        "sep_warp_pass_kernel", "staple_em_kernel")}
+        "sep_warp_x_kernel", "sep_warp_y_kernel", "sep_warp_z_kernel", "staple_em_kernel")}
     log(f"[{tag}] {wall_ms:.1f} ms wall, device busy {busy_ms:.1f} ms ({busy_ms / wall_ms:.0%}); "
         + ", ".join(f"{k} {v:.1f} ms" for k, v in ours.items() if v))
     for ms, count, name in rows[:15]:
@@ -1476,12 +1526,13 @@ def phase_times(rec, seed):
     its plain version and the one PyTorch call that computes the same
     function (timed here only): F.conv3d(groups=C) for the forward,
     aten.convolution_backward(groups=C) with the input or the weight
-    gradient selected for the backward. K1 has no such call."""
+    gradient selected for the backward. The separable warp has no such call."""
     import torch
     import torch.nn.functional as F
 
     from deep_staple_torch.ops import conv3d_dw as dw
-    from deep_staple_torch.ops.sep_warp import sep_warp_pass, sep_warp_pass_plain
+    from deep_staple_torch.ops.augment import AugmentParams
+    from deep_staple_torch.ops.sep_warp import sep_warp_apply, sep_warp_apply_plain
 
     gen = torch.Generator(device=DEV).manual_seed(seed + 2)
     saved = read_counts()
@@ -1532,16 +1583,19 @@ def phase_times(rec, seed):
                             f"library {row['library_ms']:8.3f} ms")
                 del x, g, w, wl, xl, gl, entries
                 torch.cuda.empty_cache()
-    for n, L in _sep_pass_shapes():
-        word, cc = _sep_inputs(gen, n, L)
-        row = {"shape": [n, L], **_time_row(lambda: sep_warp_pass(word, cc, L),
-                                            lambda: sep_warp_pass_plain(word, cc, L), None,
-                                            16 * n * L, SEP_OPS_PER_ELEM * n * L)}
-        times["sep_warp_pass"].setdefault("train", {}).setdefault("float32", []).append(row)
-        log(f"[times] {'sep_warp_pass':24s} {'float32':8s} {str((n, L)):22s}    "
-            f"kernel {row['ms']:8.3f} ms bound {row['bound_ms']:7.3f} ms ({row['bound_by']}) "
-            f"plain {row['plain_ms']:8.3f} ms library none")
-        del word, cc
+    data = synthetic_dataset(TRAIN_BASE[0], TRAIN_BASE[1:], seed, DEV)[0]
+    sep_in = _sep_case(seed, TRAIN_BASE, AugmentParams(), data)
+    n = math.prod(TRAIN_BASE)
+    row = {"shape": list(TRAIN_BASE), **_time_row(
+        lambda: sep_warp_apply(*sep_in), lambda: sep_warp_apply_plain(*sep_in), None,
+        SEP_BYTES_PER_ELEM * n, SEP_OPS_PER_ELEM * n)}
+    row["device_ms"] = graph_ms(lambda: sep_warp_apply(*sep_in))
+    times["sep_warp_pass"].setdefault("train", {}).setdefault("float32", []).append(row)
+    log(f"[times] {'sep_warp_pass':24s} {'float32':8s} {str(TRAIN_BASE):22s}    "
+        f"kernel {row['ms']:8.3f} ms bound {row['bound_ms']:7.3f} ms ({row['bound_by']}) "
+        f"plain {row['plain_ms']:8.3f} ms library none; the whole warp (3 pass launches and "
+        f"the absmax), device time {row['device_ms']:.4f} ms")
+    del data, sep_in
     times["staple_em_iter"] = _staple_times(gen)
     for name, fn in _wrappers().items():
         fn.launches = saved[name]
@@ -1600,7 +1654,8 @@ def summary_line(rec):
     """The {"kernels": [...]} record. The forward's numbers are sums over the
     ten calls of one serving forward (batch 4, as since it was ported), with
     one training forward beside them; the backward kernels' are sums over
-    one training step's ten calls (batch 8), K1's over its three passes;
+    one training step's ten calls (batch 8), K1's one call of the whole
+    warp (its three pass launches);
     K4's are one EM pass over the 4 x 30 group, with 4 x 10 and one case
     beside them; the input gradient's stride-2 call (`stride_2`) stands
     apart too. float32 at the top level, bfloat16 alongside."""
@@ -1623,7 +1678,8 @@ def summary_line(rec):
             "library_ms": main.get("library_ms"),
             "basis": {
                 "depthwise_conv3d_fwd": "sum over the 10 calls of one serving forward, batch 4",
-                "sep_warp_pass": "sum over the 3 passes of one training batch, batch 8",
+                "sep_warp_pass": "one call of the whole separable warp (3 pass launches) "
+                                 "over one training batch, batch 8",
                 "staple_em_iter": "one EM pass over the evaluate group, 4 cases x 30 atlases "
                                   "x 256x256x100 (one a group's EM iteration)",
             }.get(name, "sum over the 10 calls of one training step, batch 8") + ", float32",
@@ -1632,8 +1688,9 @@ def summary_line(rec):
             entry["per_shape"] = rows.get("shapes", [])
             entry["device_ms"] = sum(r["device_ms"] for r in rows.get("consensus", {}).get("float32", []))
         if name == "sep_warp_pass":
-            entry["library_note"] = ("no single PyTorch call computes one pass's in-row "
-                                     "gather, int12 lerp and 2-bit code")
+            entry["device_ms"] = sum(r["device_ms"] for r in rows.get("train", {}).get("float32", []))
+            entry["library_note"] = ("no single PyTorch call computes the warp's in-row "
+                                     "gathers, int12 lerps and 2-bit codes")
         if "bfloat16" in rows.get(head_path, {}):
             bf_errs = [v.get("bfloat16", 0.0) for k, v in checks.items() if k.startswith(name + ".")]
             entry["bfloat16"] = {**_sums(rows[head_path]["bfloat16"]),

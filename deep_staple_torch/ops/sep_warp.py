@@ -1,26 +1,34 @@
-"""The separable (3-pass scanline) augmentation warp, with K1 as a Hopper kernel.
+"""The separable (3-pass scanline) augmentation warp, fused into three Hopper
+kernels.
 
 The counterpart of `deep_staple_tpu/ops/sep_warp.py` without a mesh: the
 augmentation map is split into three 1D resampling passes (x, then y, then
 z), whose coordinate fields come from a partial inversion of the warp on a
-coarse lattice (`sep_warp_fields`, :140-242). Each pass packs, per lane, the
-lane pair (i, i+1) of the image as two int12 quanta plus the pair's 2-bit
-label codes (label | modified << 1) into one 32-bit word (`_pack_pass`,
-:274-280), and one gather per element fetches them (`sep_warp_pass`, K1).
-The JAX module's docstring explains the decomposition and its accuracy.
+coarse lattice (`sep_warp_fields`, :140-242). The JAX package packs, per
+lane, the lane pair (i, i+1) of the image as two int12 quanta plus the
+pair's 2-bit label codes (label | modified << 1) into one 32-bit word
+(`_pack_pass`, :274-280), gathers one word per element (K1,
+`_sep_pass_pallas`, :323) and transposes between the passes. The JAX
+module's docstring explains the decomposition and its accuracy.
 
-  * `sep_warp_pass` is the wrapper of K1 (`csrc/sep_warp_pass.cu`): a CPU
-    tensor takes `sep_warp_pass_plain` (the counterpart of `_sep_pass_xla`,
-    :317-320); a CUDA tensor launches the kernel or raises;
-    `sep_warp_pass.launches` counts the launches.
-  * Words are int32 tensors: every bit operation here works on int32, and
-    the packed values use bits 0..27 only.
+Here each pass works in place along its axis of the (B, D, H, W) batch, with
+no transposes, and carries one 16-bit value an element between passes
+(`encode`: the int12 quantum times 4 plus the 2-bit code), which is what
+`_pack_pass` would extract from the previous pass's float image and code.
+
+  * `sep_warp_apply` is the wrapper: a CPU tensor takes
+    `sep_warp_apply_plain`; a CUDA tensor launches the three passes of
+    `csrc/sep_warp_pass.cu` (tiled by `tile_plan`) or raises;
+    `sep_warp_apply.launches` counts the pass launches, three a call.
+  * `sep_axis_pass_plain` is one pass in plain PyTorch (`torch.gather` along
+    the pass axis, the element math of `_pass_elem_math`, :283-301).
   * `torch.round` rounds half to even, as `jnp.round` does.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Sequence
 
 import torch
@@ -164,105 +172,160 @@ def sep_warp_fields(eff_theta, ctl, spatial: Sequence[int]):
     return SepWarpFields(fx=up[:, 0], fy=up[:, 1], fz=fz)
 
 
-def pack_pass(img, code, scale):
-    """Pack each lane's (i, i+1) pair: the image as two int12 quanta (bits
-    0..23, border-replicated at the last lane) and the label codes (2 bits
-    each, bits 24..27), as int32."""
-    q = torch.round(img / scale).clamp_(-2047, 2047).to(torch.int32) & 0xFFF
-    qn = torch.cat([q[..., 1:], q[..., -1:]], dim=-1)
-    code = code.to(torch.int32)
-    cn = torch.cat([code[..., 1:], code[..., -1:]], dim=-1)
-    return q | (qn << 12) | (code << 24) | (cn << 26)
+def encode(x, code):
+    """The 16-bit value a pass hands the next: the int12 quantum
+    clamp(round(x), +/-2047) times 4 plus the 2-bit code, as int16. `>> 2`
+    gives the quantum back, `& 3` the code."""
+    q = torch.round(x).clamp_(-2047, 2047).to(torch.int16)
+    return q * 4 + code.to(torch.int16)
 
 
-def sep_warp_pass_plain(word, cc, L: int):
-    """One pass in plain PyTorch: word (..., L) int32, cc (..., L) float32
-    voxel coordinates -> (img float32, code int32)."""
+def sep_axis_pass_plain(t, cc, dim: int):
+    """One pass in plain PyTorch along axis `dim` of t (encoded int16), at cc
+    (float32 voxel coordinates along that axis, t's shape) -> (img float32,
+    code int16). The image is the lerp of the quanta at i0 and i1 = min(i0
+    + 1, L - 1) (the border replication of `_pack_pass`); the code the
+    nearest (half to even), 0 outside [-0.5, L - 0.5)."""
+    L = t.shape[dim]
     cimg = cc.clamp(0.0, L - 1.0)
     i0 = torch.floor(cimg).to(torch.int32).clamp_(0, max(L - 2, 0))
     w = cimg - i0.float()
-    g = torch.gather(word, -1, i0.long())
-    v0 = (((g & 0xFFF) ^ 0x800) - 0x800).float()
-    v1 = ((((g >> 12) & 0xFFF) ^ 0x800) - 0x800).float()
-    img = v0 * (1.0 - w) + v1 * w
-    sel = (torch.round(cc) >= (i0 + 1).float())  # clamp(round(cc) - i0, 0, 1) == 1
-    code = torch.where(sel, (g >> 26) & 0x3, (g >> 24) & 0x3)
+    g0 = torch.gather(t, dim, i0.long())
+    g1 = torch.gather(t, dim, (i0.long() + 1).clamp_(max=L - 1))
+    img = (g0 >> 2).float() * (1.0 - w) + (g1 >> 2).float() * w
+    sel = torch.round(cc) >= (i0 + 1).float()  # clamp(round(cc) - i0, 0, 1) == 1
+    code = torch.where(sel, g1 & 3, g0 & 3)
     valid = (cc >= -0.5) & (cc < L - 0.5)
     return img, torch.where(valid, code, 0)
+
+
+def _absmax_step(img):
+    """absmax / 2047 of each sample, (B,): the quantization step before its
+    floor of 1e-12 (which the kernels apply themselves)."""
+    amax = torch.linalg.vector_norm(img.reshape(img.shape[0], -1), float("inf"), dim=1)
+    return amax.div_(2047.0)
+
+
+def sep_warp_apply_plain(img, lbl, mod, fields: SepWarpFields):
+    """The three passes in plain PyTorch, each along its axis in place: what
+    the kernels compute, on any device."""
+    B, D, H, W = img.shape
+    scale = _absmax_step(img).clamp_(min=1e-12).reshape(B, 1, 1, 1)
+    t = encode(img.float() / scale, (lbl + 2 * mod) & 3)
+    t = encode(*sep_axis_pass_plain(t, unnormalize(fields.fx, W), 3))
+    t = encode(*sep_axis_pass_plain(t, unnormalize(fields.fy, H), 2))
+    x, code = sep_axis_pass_plain(t, unnormalize(fields.fz, D), 1)
+    return x * scale, (code & 1).to(torch.int32), (code >> 1).to(torch.int32)
+
+
+SMEM_MAX = 232_448  # bytes of shared memory a block may use on sm_90 (227 KB)
+TILE_BYTES = 6  # a tile position: its float32 coordinate and its int16 quantum
+MAX_AXIS = SMEM_MAX // TILE_BYTES  # voxels of the longest axis: one whole row in a block
+TILE_COLS = 32  # positions a pass-Y or pass-Z block takes at most
+X_ELEMS = 1024  # elements (whole W-rows, at least one) a pass-X block takes at most
+
+
+class WarpPlan(NamedTuple):
+    """How the kernels tile a (B, D, H, W) batch: pass X takes `rows_x` whole
+    W-rows a block, pass Y whole H-columns of `cols_y` consecutive W
+    positions, pass Z whole D-columns of `cols_z` consecutive positions of
+    the (H, W) plane. A block's shared memory holds TILE_BYTES a position
+    of its tile."""
+
+    rows_x: int
+    cols_y: int
+    cols_z: int
+
+
+def _even_split(n: int, cap: int) -> int:
+    """The width of the fewest equal tiles of at most `cap` that cover n."""
+    return -(-n // -(-n // cap))
+
+
+@functools.lru_cache(maxsize=64)
+def tile_plan(shape) -> WarpPlan:
+    """The kernels' tiles for a batch of `shape` (a tuple); raises ValueError
+    for a shape the kernels do not take (see `sep_warp_apply`)."""
+    B, D, H, W = (int(s) for s in shape)
+    if min(B, D, H, W) < 1 or B > 65_535 or D * H * W > 2**31 - 1:
+        raise ValueError(f"sep_warp_apply on the card takes 1 to 65,535 samples of 1 to "
+                         f"2^31 - 1 voxels; got {(B, D, H, W)}")
+    too_long = {a: n for a, n in zip("DHW", (D, H, W)) if n > MAX_AXIS}
+    if too_long:
+        raise ValueError(f"sep_warp_apply on the card takes axes of at most {MAX_AXIS} voxels "
+                         f"(a whole row in 227 KB of shared memory); got {too_long}")
+    rows_x = min(D * H, max(1, X_ELEMS // W // 4 * 4))  # a multiple of 4 rows: 16-byte loads
+    cols_y = _even_split(W, min(TILE_COLS, SMEM_MAX // (TILE_BYTES * H)))
+    cols_z = _even_split(H * W, min(TILE_COLS, SMEM_MAX // (TILE_BYTES * D)))
+    return WarpPlan(rows_x, cols_y, cols_z)
 
 
 def load_library():
     lib = cuda_build.load("sep_warp_pass")
     if not hasattr(lib, "error_string"):
-        vp = ctypes.c_void_p
-        lib.sw_pass.argtypes = [vp, vp, vp, vp, ctypes.c_longlong, ctypes.c_int, vp]
-        lib.sw_pass.restype = ctypes.c_int
+        vp, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.sw_apply.argtypes = [vp] * 6 + [i64] * 3 + [vp] * 5 + [i] * 7 + [vp]
+        lib.sw_apply.restype = ctypes.c_int
         lib.sw_error_string.argtypes = [ctypes.c_int]
         lib.sw_error_string.restype = ctypes.c_char_p
         lib.error_string = lib.sw_error_string
     return lib
 
 
-def sep_warp_pass(word, cc, L: int):
-    """One scanline pass (K1). CPU tensors take `sep_warp_pass_plain`; CUDA
-    tensors launch the Hopper kernel on the current stream and add one to
-    `sep_warp_pass.launches`; any other device raises."""
-    if word.device.type == "cpu":
-        return sep_warp_pass_plain(word, cc, L)
-    if word.device.type != "cuda":
-        raise ValueError(f"unsupported device {word.device}")
-    if word.dtype != torch.int32 or cc.dtype != torch.float32:
-        raise TypeError(f"word must be int32 and cc float32, got {word.dtype} and {cc.dtype}")
-    if word.shape != cc.shape or word.shape[-1] != L or cc.device != word.device:
-        raise ValueError(f"word {tuple(word.shape)} and cc {tuple(cc.shape)} must be (..., {L}) "
-                         "on one device")
-    if word.device.index != torch.cuda.current_device():
-        raise ValueError(f"{word.device} is not the current CUDA device")
-    word, cc = word.contiguous(), cc.contiguous()
-    img = torch.empty(cc.shape, dtype=torch.float32, device=cc.device)
-    code = torch.empty(cc.shape, dtype=torch.int32, device=cc.device)
-    lib = load_library()
-    err = lib.sw_pass(word.data_ptr(), cc.data_ptr(), img.data_ptr(), code.data_ptr(),
-                      word.numel(), L, torch.cuda.current_stream(word.device).cuda_stream)
-    cuda_build.check(lib, err, "sep_warp_pass")
-    sep_warp_pass.launches += 1
-    return img, code
+def _contiguous(t, dtype):
+    return t if t.dtype == dtype and t.is_contiguous() else t.to(dtype).contiguous()
 
 
-sep_warp_pass.launches = 0
+def _dense_samples(f, inner):
+    """f if it is float32 with each sample dense (strides `inner` after the
+    batch's, as a slice of the stacked fields has), else a contiguous copy:
+    the kernels take a batch stride."""
+    return f if f.dtype == torch.float32 and f.stride()[1:] == inner else f.float().contiguous()
 
 
 def sep_warp_apply(img, lbl, mod, fields: SepWarpFields):
     """Apply the separable warp (`sep_warp.py:378-453`, no mesh): image 1D
     lerp with border padding and labels 1D nearest with zeros padding per
-    pass, all three riding one packed word per element.
+    pass, along W, then H, then D.
 
-    img: (B, D, H, W) float32; lbl, mod: (B, D, H, W) binary integers.
-    Returns (img, lbl, mod) at the same shape. The transposes between the
-    passes are `permute().contiguous()`.
+    img: (B, D, H, W) float32; lbl, mod: (B, D, H, W) binary integers;
+    fields from `sep_warp_fields`. Returns (img float32, lbl int32, mod
+    int32) at the same shape. CPU tensors take `sep_warp_apply_plain`; CUDA
+    tensors launch the three kernels on the current stream and add 3 to
+    `sep_warp_apply.launches`; any other device raises. On the card every
+    axis is at most MAX_AXIS (38,741) voxels, a sample at most 2^31 - 1
+    voxels and B at most 65,535: beyond that it raises ValueError.
     """
-    B, D, H, W = img.shape
-    scale = img.reshape(B, -1).abs().amax(dim=1).reshape(B, 1, 1, 1) / 2047.0
-    scale = scale.clamp(min=1e-12)
-    code = (lbl + 2 * mod).to(torch.int32)
-    one = torch.ones_like(scale)
+    dev = img.device
+    if dev.type == "cpu":
+        return sep_warp_apply_plain(img, lbl, mod, fields)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    shape = img.shape
+    if any(t.shape != shape or t.device != dev for t in (lbl, mod, *fields)):
+        raise ValueError(f"labels and fields must be {tuple(shape)} on {dev}")
+    if dev.index != torch.cuda.current_device():
+        raise ValueError(f"{dev} is not the current CUDA device")
+    plan = tile_plan(tuple(shape))
+    # Each step here costs the host microseconds; the absmax goes first so
+    # that the card works while the host prepares the rest.
+    img = _contiguous(img, torch.float32)
+    step = _absmax_step(img)
+    lbl, mod = _contiguous(lbl, torch.int32), _contiguous(mod, torch.int32)
+    inner = img.stride()[1:]
+    fx, fy, fz = (_dense_samples(f, inner) for f in fields)
+    tmp = torch.empty(shape, dtype=torch.int16, device=dev)
+    out = torch.empty_like(img)
+    labels = torch.empty((2, *shape), dtype=torch.int32, device=dev)
+    lib = load_library()
+    err = lib.sw_apply(img.data_ptr(), lbl.data_ptr(), mod.data_ptr(), fx.data_ptr(),
+                       fy.data_ptr(), fz.data_ptr(), fx.stride(0), fy.stride(0), fz.stride(0),
+                       step.data_ptr(), tmp.data_ptr(), out.data_ptr(), labels.data_ptr(),
+                       labels.data_ptr() + 4 * img.numel(), *shape, *plan,
+                       torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(lib, err, "sep_warp_apply")
+    sep_warp_apply.launches += 3
+    return (out, *labels.unbind(0))
 
-    # Pass 1 along W; the image leaves in int12 units, so the two repacks
-    # quantize at +/-0.5 unit instead of taking the absmax again.
-    x1, c1 = sep_warp_pass(pack_pass(img.float(), code, scale), unnormalize(fields.fx, W), W)
 
-    # Pass 2 along H, in layout (B, D, W, H).
-    x1 = x1.permute(0, 1, 3, 2).contiguous()
-    c1 = c1.permute(0, 1, 3, 2).contiguous()
-    ccy = unnormalize(fields.fy, H).permute(0, 1, 3, 2).contiguous()
-    x2, c2 = sep_warp_pass(pack_pass(x1, c1, one), ccy, H)
-
-    # Pass 3 along D, in layout (B, H, W, D).
-    x2 = x2.permute(0, 3, 2, 1).contiguous()
-    c2 = c2.permute(0, 3, 2, 1).contiguous()
-    ccz = unnormalize(fields.fz, D).permute(0, 2, 3, 1).contiguous()
-    x3, c3 = sep_warp_pass(pack_pass(x2, c2, one), ccz, D)
-
-    img_out = x3.permute(0, 3, 1, 2) * scale
-    code_out = c3.permute(0, 3, 1, 2).contiguous()
-    return img_out, code_out & 1, code_out >> 1
+sep_warp_apply.launches = 0

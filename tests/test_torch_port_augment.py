@@ -1,10 +1,11 @@
-"""The port's augmentation (the 'reference' and 'fast-sep' orders, K1's plain
-pass) against the JAX package, on the CPU.
+"""The port's augmentation (the 'reference' and 'fast-sep' orders, the
+separable warp's plain passes and tile plan) against the JAX package, on the
+CPU.
 
 The JAX side draws its random numbers from a key; the same numbers (the
 unit-normal noise and the warp's parts `(eff_theta, ctl)`) are handed to the
-port as `AugmentDraws`. K1 itself is held against `sep_warp_pass_plain` on
-the card by `chip_smoke.py`.
+port as `AugmentDraws`. The warp's kernels themselves are held against
+`sep_warp_apply_plain` on the card by `chip_smoke.py`.
 """
 
 import numpy as np
@@ -57,23 +58,124 @@ def _ulp(a):
     return np.spacing(np.abs(a).astype(np.float32))
 
 
-def test_sep_pass_plain_matches_xla():
-    rng = np.random.RandomState(0)
-    for L in (50, 7, 1):
-        n = 6
-        img = rng.randn(n, L).astype(np.float32) * 900
-        code = rng.randint(0, 4, (n, L)).astype(np.int32)
-        word = jsep._pack_pass(jnp.asarray(img), jnp.asarray(code), 1.0)
-        cc = rng.uniform(-3, L + 2, (n, L)).astype(np.float32)
-        cc[:, :4] = np.array([-0.5, 0.5, L - 0.5, L - 1.5], np.float32)[: cc.shape[1]] \
-            if L >= 4 else cc[:, :4]
-        want_img, want_code = jsep._sep_pass_xla(word, jnp.asarray(cc), L)
-        got_word = sep.pack_pass(_t(img), _t(code), torch.tensor(1.0))
-        np.testing.assert_array_equal(got_word.numpy().view(np.uint32), np.asarray(word))
-        got_img, got_code = sep.sep_warp_pass(got_word, _t(cc), L)
-        np.testing.assert_array_equal(got_code.numpy(), np.asarray(want_code))
-        diff = np.abs(got_img.numpy() - np.asarray(want_img))
-        assert (diff <= _ulp(np.asarray(want_img))).all(), diff.max()
+@pytest.mark.parametrize("axis", [1, 2, 3])
+def test_sep_pass_plain_matches_xla(axis):
+    """The in-place axis pass against JAX's packed word and XLA pass on the
+    same data moved to the last axis."""
+    rng = np.random.RandomState(axis)
+    for L in (50, 7, 2, 1):
+        shape = [2, 3, 4, 5]
+        shape[axis] = L
+        img = rng.randn(*shape).astype(np.float32) * 900
+        code = rng.randint(0, 4, shape).astype(np.int32)
+        cc = rng.uniform(-3, L + 2, shape).astype(np.float32)
+        edges = np.array([-0.5, 0.5, L - 0.5, L - 1.5], np.float32)[:L]
+        np.moveaxis(cc, axis, -1)[..., :len(edges)] = edges
+        word = jsep._pack_pass(jnp.asarray(np.moveaxis(img, axis, -1)),
+                               jnp.asarray(np.moveaxis(code, axis, -1)), 1.0)
+        want_img, want_code = (np.moveaxis(np.asarray(a), -1, axis) for a in jsep._sep_pass_xla(
+            word, jnp.asarray(np.moveaxis(cc, axis, -1)), L))
+        t = sep.encode(_t(img), _t(code))
+        gi = np.asarray(word).astype(np.int64)
+        np.testing.assert_array_equal(np.moveaxis((t >> 2).numpy(), axis, -1),
+                                      ((gi & 0xFFF) ^ 0x800) - 0x800)
+        np.testing.assert_array_equal(np.moveaxis((t & 3).numpy(), axis, -1), (gi >> 24) & 3)
+        got_img, got_code = sep.sep_axis_pass_plain(t, _t(cc), axis)
+        np.testing.assert_array_equal(got_code.numpy(), want_code)
+        diff = np.abs(got_img.numpy() - want_img)
+        assert (diff <= _ulp(want_img)).all(), diff.max()
+
+
+def _pack_pass(img, code, scale):
+    """The packed word of the port before its passes were fused (the
+    counterpart of JAX's `_pack_pass`)."""
+    q = torch.round(img / scale).clamp_(-2047, 2047).to(torch.int32) & 0xFFF
+    qn = torch.cat([q[..., 1:], q[..., -1:]], dim=-1)
+    code = code.to(torch.int32)
+    cn = torch.cat([code[..., 1:], code[..., -1:]], dim=-1)
+    return q | (qn << 12) | (code << 24) | (cn << 26)
+
+
+def _packed_pass(word, cc, L):
+    """One pass over rows of packed words (the counterpart of `_sep_pass_xla`)."""
+    cimg = cc.clamp(0.0, L - 1.0)
+    i0 = torch.floor(cimg).to(torch.int32).clamp_(0, max(L - 2, 0))
+    w = cimg - i0.float()
+    g = torch.gather(word, -1, i0.long())
+    v0 = (((g & 0xFFF) ^ 0x800) - 0x800).float()
+    v1 = ((((g >> 12) & 0xFFF) ^ 0x800) - 0x800).float()
+    img = v0 * (1.0 - w) + v1 * w
+    sel = torch.round(cc) >= (i0 + 1).float()
+    code = torch.where(sel, (g >> 26) & 0x3, (g >> 24) & 0x3)
+    valid = (cc >= -0.5) & (cc < L - 0.5)
+    return img, torch.where(valid, code, 0)
+
+
+def _packed_composition(img, lbl, mod, fields):
+    """The port's warp before its passes were fused: a packed word an element
+    each pass and transposes between the passes."""
+    B, D, H, W = img.shape
+    scale = img.reshape(B, -1).abs().amax(dim=1).reshape(B, 1, 1, 1) / 2047.0
+    scale = scale.clamp(min=1e-12)
+    code = (lbl + 2 * mod).to(torch.int32)
+    one = torch.ones_like(scale)
+    x1, c1 = _packed_pass(_pack_pass(img.float(), code, scale), sep.unnormalize(fields.fx, W), W)
+    x1 = x1.permute(0, 1, 3, 2).contiguous()
+    c1 = c1.permute(0, 1, 3, 2).contiguous()
+    ccy = sep.unnormalize(fields.fy, H).permute(0, 1, 3, 2).contiguous()
+    x2, c2 = _packed_pass(_pack_pass(x1, c1, one), ccy, H)
+    x2 = x2.permute(0, 3, 2, 1).contiguous()
+    c2 = c2.permute(0, 3, 2, 1).contiguous()
+    ccz = sep.unnormalize(fields.fz, D).permute(0, 2, 3, 1).contiguous()
+    x3, c3 = _packed_pass(_pack_pass(x2, c2, one), ccz, D)
+    code_out = c3.permute(0, 3, 1, 2).contiguous()
+    return x3.permute(0, 3, 1, 2) * scale, code_out & 1, code_out >> 1
+
+
+@pytest.mark.parametrize("shape", [(2, *BASE), (1, 1, 1, 1), (2, 3, 5, 1), (1, 2, 1, 2), (1, 7, 9, 37)])
+def test_sep_warp_apply_matches_packed_composition(shape):
+    """The fused passes' plain version equals the packed-word, transposed
+    composition they replace: the image bitwise, both labels exactly."""
+    draws = aug.draw_augment(torch.Generator().manual_seed(sum(shape)), shape, aug.AugmentParams(
+        *_strong_params()))
+    fields = sep.sep_warp_fields(draws.eff_theta, draws.ctl, shape[1:])
+    rng = np.random.RandomState(len(shape) + shape[-1])
+    img = _t(rng.randn(*shape).astype(np.float32) * 3)
+    lbl, mod = (_t((rng.rand(*shape) < 0.4).astype(np.int32)) for _ in range(2))
+    got = sep.sep_warp_apply(img, lbl, mod, fields)
+    want = _packed_composition(img, lbl, mod, fields)
+    assert got[0].dtype == torch.float32 and got[1].dtype == got[2].dtype == torch.int32
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("shape", [(8, 128, 128, 50), (2, *BASE), (1, 1, 1, 1), (2, 3, 5, 1),
+                                   (1, 7, 9, 37), (2, 5, 100, 130), (1, 1024, 8, 9),
+                                   (1, 2, 2000, 50), (1, 1, 2, 30_000),
+                                   (1, sep.MAX_AXIS, 1, 1), (1, 1, 1, sep.MAX_AXIS)])
+def test_tile_plan_fits_and_covers(shape):
+    """Each pass's tile fits a block's shared memory, and the kernels' blocks
+    (as `sep_warp_pass.cu` enumerates them) take every row of the pass
+    axis's lines exactly once."""
+    B, D, H, W = shape
+    plan = sep.tile_plan(shape)
+    tiles = (plan.rows_x * W, H * plan.cols_y, D * plan.cols_z)
+    assert sep.TILE_BYTES * max(tiles) <= sep.SMEM_MAX
+    for lines, per in ((D * H, plan.rows_x), (W, plan.cols_y), (H * W, plan.cols_z)):
+        seen = np.zeros(lines, np.int64)
+        for k in range(-(-lines // per)):
+            seen[k * per:min(lines, (k + 1) * per)] += 1
+        assert (seen == 1).all() and 1 <= per <= lines
+
+
+@pytest.mark.parametrize("axis", [1, 2, 3])
+def test_tile_plan_raises_beyond_limit(axis):
+    shape = [2, 3, 4, 5]
+    shape[axis] = sep.MAX_AXIS + 1
+    with pytest.raises(ValueError, match=f"at most {sep.MAX_AXIS} voxels"):
+        sep.tile_plan(tuple(shape))
+    with pytest.raises(ValueError, match="65,535 samples"):
+        sep.tile_plan((65_536, 1, 1, 1))
 
 
 def test_sep_warp_fields_match_jax():

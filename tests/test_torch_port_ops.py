@@ -262,9 +262,9 @@ def test_default_device_never_falls_back_to_cpu(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError):
         serve_mod.serve(tmp_path / "ckpt", [], tmp_path / "out", mesh_data=2, device="cpu")
     # Only a CPU tensor takes the plain version; any other device raises, in
-    # the forward, both backward wrappers and K1.
+    # the forward, both backward wrappers and the separable warp.
     from deep_staple_torch.ops.conv3d_dw import depthwise_conv3d_grad_w, depthwise_conv3d_grad_x
-    from deep_staple_torch.ops.sep_warp import sep_warp_pass
+    from deep_staple_torch.ops.sep_warp import SepWarpFields, sep_warp_apply
 
     x = torch.zeros(1, 3, 3, 3, 4, device="meta")
     w = torch.zeros(27, 4, device="meta")
@@ -272,8 +272,9 @@ def test_default_device_never_falls_back_to_cpu(tmp_path, monkeypatch):
     for call in (lambda: depthwise_conv3d(x, w), lambda: depthwise_conv3d(x.requires_grad_(), w),
                  lambda: depthwise_conv3d_grad_x(g, w, 2, x.shape),
                  lambda: depthwise_conv3d_grad_w(x, g, 2),
-                 lambda: sep_warp_pass(torch.zeros(2, 5, dtype=torch.int32, device="meta"),
-                                       torch.zeros(2, 5, device="meta"), 5)):
+                 lambda: sep_warp_apply(torch.zeros(1, 2, 3, 5, device="meta"),
+                                        *[torch.zeros(1, 2, 3, 5, dtype=torch.int32, device="meta")] * 2,
+                                        SepWarpFields(*[torch.zeros(1, 2, 3, 5, device="meta")] * 3))):
         with pytest.raises(ValueError):
             call()
     with pytest.raises((RuntimeError, AssertionError)):
