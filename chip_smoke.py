@@ -4,8 +4,8 @@
     python3 chip_smoke.py [--seed 0] [--phases PHASE,...] [--json-out FILE]
 
     phases: device, build, kernels, train_kernels, consensus_kernels, serve,
-            e2e, profile, train, train_e2e, train_profile, consensus, times
-            (default: all)
+            e2e, profile, train, train_e2e, train_profile, consensus,
+            train_dl, times (default: all)
 
 Run from the repository root. It builds every kernel of the port from the
 sources in the checkout (one nvcc per source, all at once), holds each
@@ -28,7 +28,12 @@ give it, and drives both main paths at full size:
     fixed images x 10 atlases, and `evaluate_consensus` on 4 x 30 in
     memory, with K4 (the fused EM pass) checked against its plain version
     at those shapes and at edge shapes; card against CPU on 2 x 10 atlases
-    at 64x64x25.
+    at 64x64x25;
+  * the driver: the synthetic fixture of 8 cases x 4 atlases at 128x128x50,
+    `prepare_data`, `train_dl` in the production configuration (3 epochs
+    of 3 steps at batch 8, validation, a checkpoint every epoch, the
+    snapshot export), `evaluate_consensus` on that snapshot, and a small
+    float32 run on the card against the CPU with the same draws.
 
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after. It times each kernel beside its bound, its plain
@@ -58,7 +63,7 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 WORK = REPO / "build" / "chip_smoke"
 PHASES = ("device", "build", "kernels", "train_kernels", "consensus_kernels", "serve", "e2e",
-          "profile", "train", "train_e2e", "train_profile", "consensus", "times")
+          "profile", "train", "train_e2e", "train_profile", "consensus", "train_dl", "times")
 
 # The depthwise conv's shapes at the serve CLI's defaults: size 128^3 with
 # crop (45, 95) gives 128x128x50, eval x2.0 gives 256x256x100 at the input,
@@ -180,6 +185,8 @@ PATH_KERNELS = {
     "train": ("depthwise_conv3d_fwd", "depthwise_conv3d_grad_x", "depthwise_conv3d_grad_w",
               "sep_warp_pass"),
     "consensus": ("staple_em_iter",),
+    "train_dl": ("depthwise_conv3d_fwd", "depthwise_conv3d_grad_x", "depthwise_conv3d_grad_w",
+                 "sep_warp_pass", "staple_em_iter"),
 }
 # The device of the kernel and training phases. main() runs only with CUDA;
 # a CPU rehearsal of the control flow may import this module and set "cpu".
@@ -247,6 +254,7 @@ def _wrappers():
 def reset_counts():
     for fn in _wrappers().values():
         fn.launches = 0
+    _wrappers()["depthwise_conv3d_grad_x"].launches_by_stride = {1: 0, 2: 0}
 
 
 def read_counts() -> dict:
@@ -595,7 +603,7 @@ def _setup_serving(rec, seed):
     from deep_staple_torch.models.interop import load_flax_variables
     from deep_staple_torch.ops.resample import interpolate_sample
     from deep_staple_torch.serve import preprocess
-    from deep_staple_torch.train.checkpoint import save_checkpoint
+    from deep_staple_torch.train.checkpoint import save_weights
     from deep_staple_torch.train.driver import make_model
 
     shutil.rmtree(WORK, ignore_errors=True)
@@ -629,7 +637,7 @@ def _setup_serving(rec, seed):
         m, _ = make_model(c, 2)
         load_flax_variables(m, variables)
         ckpts[dtype] = WORK / f"ckpt_{dtype}"
-        save_checkpoint(ckpts[dtype], m, np.zeros(24, np.float32), c)
+        save_weights(ckpts[dtype], m, np.zeros(24, np.float32), c)
     return inputs, variables, small, ckpts
 
 
@@ -1103,6 +1111,330 @@ def phase_train_profile(rec, data, cw, fixed, seed):
     rec["train_profile"] = _profile("train_profile production step", one)
     del holder, model, step
     torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------- the driver
+
+# The driver's phase: the synthetic fixture (`data/synthetic.py`) of 8 cases
+# x 4 atlases, one bad atlas a case, written at the production shape after
+# `_prep_volume`'s W-crop; `prepare_data`, then `train_dl` in the production
+# configuration, 3 epochs at batch 8 with 2 validation images (the first 8
+# instances) and a checkpoint every epoch: 24 train instances, 3 steps an
+# epoch at (8, 192, 192, 75) after the x1.5 pre-interpolation. Then the
+# consensus of the snapshot it wrote (6 fixed images x 4 atlases at the x2.0
+# eval scale, 256x256x100). The card is held against the CPU on a small run:
+# 4 cases x 2 atlases at 24x24x16, float32, 2 epochs.
+TRAIN_DL_SIZE, TRAIN_DL_CASES, TRAIN_DL_ATLASES = (128, 128, 50), 8, 4
+TRAIN_DL_SMALL = dict(size=(24, 24, 16), cases=4, atlases=2)
+# Card against CPU at the small size, with every draw from the host, lr
+# 1e-4 and both optimizers warm (as after 10 steps, second moments 1e-4): a
+# cold Adam's first update is lr * g / |g|, so the sign of a near-zero
+# gradient decides it, and a cold SparseAdam moves a DP row by +-0.1 that
+# way. Even so the run amplifies float32 noise: on the CPU alone, weights
+# perturbed by 1e-6 of their value move the first step's loss by 7e-5 (the
+# risk term counts argmax positives), the later steps' by up to 1.5e-3 (the
+# first async-BatchNorm step normalizes with statistics of two warm-up
+# steps), the DP vector by 6e-6. The card adds the fields' rounding: a
+# nearest label or a floor in the warp may fall the other way. Bounds: the
+# first step's loss 2e-3 of its value, per-epoch mean losses 2e-2, the DP
+# vector 1e-1 of its largest |value| (the warm SparseAdam moves a row by
+# about 1e-4 a step).
+TRAIN_DL_STEP1_RTOL, TRAIN_DL_LOSS_RTOL, TRAIN_DL_DP_RTOL = 2e-3, 2e-2, 1e-1
+
+
+def _dl_config(root, **kw):
+    from deep_staple_torch.core.config import TrainConfig
+
+    base = dict(dataset="synthetic", reg_state="synthetic", dataset_directory=str(root),
+                crop_3d_w_dim_range=None, save_every=1, output_dir=str(root / "out"),
+                mdl_save_prefix=str(root / "models"))
+    return TrainConfig.tpu_production(**{**base, **kw})
+
+
+def _states_equal(a, b) -> list:
+    """Names of the tensors where two train states differ (empty if equal)."""
+    import torch
+
+    bad = [k for (k, va), vb in zip(a.model.state_dict().items(), b.model.state_dict().values())
+           if not torch.equal(va, vb)]
+    oa, ob = a.optimizer.state_dict()["state"], b.optimizer.state_dict()["state"]
+    if sorted(oa) != sorted(ob) or not oa:
+        bad.append("optimizer state keys")
+    bad += [f"optimizer {k} {n}" for k in oa if k in ob for n in oa[k]
+            if not torch.equal(oa[k][n].cpu(), ob[k][n].cpu())]
+    if not torch.equal(a.dp_params, b.dp_params):
+        bad.append("dp_params")
+    bad += [f"dp_opt_state.{n}" for n in ("mu", "nu", "count")
+            if not torch.equal(getattr(a.dp_opt_state, n), getattr(b.dp_opt_state, n))]
+    if (a.step, a.sched_steps) != (b.step, b.sched_steps):
+        bad.append("counters")
+    return bad
+
+
+def _instrument_driver(timing, dataset):
+    """Time the driver's parts from outside: each train step's call (its
+    start, and the host's time in it: the launches), the host's batch
+    assembly, augmentation draws and copies to the card (no sync; the
+    driver itself syncs only on its deferred metric reads), each validation
+    forward and the snapshot export (synced), and the checkpoint writes.
+    Returns a function that undoes it."""
+    from deep_staple_torch.train import driver
+
+    names = ("make_train_step", "make_eval_step", "export_train_label_snapshot",
+             "save_checkpoint", "draw_augment", "_to_device")
+    saved = {n: getattr(driver, n) for n in names}
+
+    def timed(fn, key, sync):
+        def run(*a, **k):
+            t = _sync() if sync else time.perf_counter()
+            out = fn(*a, **k)
+            timing.setdefault(key, []).append(((_sync() if sync else time.perf_counter()) - t))
+            return out
+        return run
+
+    make_train_step = driver.make_train_step
+
+    def make_step(*a, **k):
+        step = make_train_step(*a, **k)
+
+        def run(*aa, **kk):
+            timing.setdefault("step_calls", []).append(time.time())  # the writer's clock
+            t = time.perf_counter()
+            out = step(*aa, **kk)
+            timing.setdefault("step_host_s", []).append(time.perf_counter() - t)
+            return out
+        return run
+
+    make_eval_step = driver.make_eval_step
+    driver.make_train_step = make_step
+    driver.make_eval_step = lambda *a, **k: timed(make_eval_step(*a, **k), "val_s", True)
+    driver.export_train_label_snapshot = timed(driver.export_train_label_snapshot, "export_s", True)
+    driver.save_checkpoint = timed(driver.save_checkpoint, "checkpoint_s", True)
+    driver.draw_augment = timed(driver.draw_augment, "draw_s", False)
+    driver._to_device = timed(driver._to_device, "copy_s", False)
+    dataset.sample_batch = timed(dataset.sample_batch, "sample_batch_s", False)
+
+    def undo():
+        for n, fn in saved.items():
+            setattr(driver, n, fn)
+        del dataset.sample_batch
+    return undo
+
+
+def _dl_small(root, device, seed):
+    """The small float32 run on `device` with every draw from the host and
+    both optimizers warm; -> (each step's loss, per-epoch mean losses, DP
+    vector)."""
+    import torch
+
+    from deep_staple_torch.data.synthetic import generate_synthetic_crossmoda
+    from deep_staple_torch.train import driver
+    from deep_staple_torch.train.prepare import prepare_data
+
+    s = TRAIN_DL_SMALL
+    generate_synthetic_crossmoda(root, num_cases=s["cases"], atlas_count=s["atlases"],
+                                 size=s["size"], seed=seed)
+    cfg = _dl_config(root, compute_dtype="float32", epochs=2, batch_size=3, num_val_images=1,
+                     lr=1e-4, save_labels=False, log_jsonl=False)
+    create_state, make_train_step = driver.create_state, driver.make_train_step
+    step_losses = []
+
+    def warm_state(*a, **k):
+        state = create_state(*a, **k)
+        for p in state.model.parameters():
+            state.optimizer.state[p] = {"step": torch.tensor(10.0),
+                                        "exp_avg": torch.zeros_like(p),
+                                        "exp_avg_sq": torch.full_like(p, 1e-4)}
+        o = state.dp_opt_state
+        state.dp_opt_state = o._replace(nu=torch.full_like(o.nu, 1e-4),
+                                        count=torch.full_like(o.count, 10))
+        return state
+
+    def make_step(*a, **k):
+        step = make_train_step(*a, **k)
+
+        def run(*aa, **kk):
+            state, metrics = step(*aa, **kk)
+            step_losses.append((float(metrics["loss"]), float(metrics["ce_loss"])))
+            return state, metrics
+        return run
+
+    driver.create_state, driver.make_train_step = warm_state, make_step
+    try:
+        res = driver.train_dl("small", cfg, *prepare_data(cfg), device=device,
+                              draws_on_host=True)[0]
+    finally:
+        driver.create_state, driver.make_train_step = create_state, make_train_step
+    losses = [h["losses/loss_fold0"] for h in res["writer"].history if "losses/loss_fold0" in h]
+    return step_losses, losses, res["state"].dp_params.cpu().numpy()
+
+
+def phase_train_dl(rec, seed):
+    """The training half of the production pipeline through the port's entry
+    points: the synthetic fixture, `prepare_data`, `train_dl`, the snapshot
+    and `evaluate_consensus` over it, with the checks of each; then the card
+    against the CPU on a small run."""
+    import tempfile
+
+    import torch
+
+    from deep_staple_torch.consensus.evaluate import evaluate_consensus
+    from deep_staple_torch.data.snapshot_io import load_snapshot
+    from deep_staple_torch.data.synthetic import generate_synthetic_crossmoda
+    from deep_staple_torch.ops import conv3d_dw
+    from deep_staple_torch.train import driver
+    from deep_staple_torch.train.checkpoint import restore_checkpoint
+    from deep_staple_torch.train.prepare import prepare_data
+    from deep_staple_torch.train.state import create_state
+    from deep_staple_torch.utils.logging import MetricWriter
+
+    out = rec["train_dl"] = {}
+    with tempfile.TemporaryDirectory(prefix="train_dl_") as tmp:
+        root = Path(tmp) / "full"
+        t = time.perf_counter()
+        generate_synthetic_crossmoda(root, num_cases=TRAIN_DL_CASES, atlas_count=TRAIN_DL_ATLASES,
+                                     bad_atlases_per_case=1, size=TRAIN_DL_SIZE, seed=seed)
+        cfg = _dl_config(root, epochs=3, batch_size=8, num_val_images=2)
+        dataset, atlas_count = prepare_data(cfg)
+        out["fixture_and_prepare_s"] = time.perf_counter() - t
+        log(f"[train_dl] fixture {TRAIN_DL_CASES} x {TRAIN_DL_ATLASES} at {TRAIN_DL_SIZE} and "
+            f"prepare_data: {len(dataset)} instances in {out['fixture_and_prepare_s']:.1f} s")
+
+        timing, writer = {}, MetricWriter()
+        undo = _instrument_driver(timing, dataset)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        try:
+            t = _sync()
+            res = driver.train_dl("smoke", cfg, dataset, atlas_count, writer=writer, device=DEV)[0]
+            out["train_dl_s"] = _sync() - t
+        finally:
+            undo()
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        train_counts = read_counts()
+        out["grad_x_launches_by_stride"] = dict(conv3d_dw.depthwise_conv3d_grad_x.launches_by_stride)
+
+        # Consensus of the exported snapshot, on the card.
+        snap_path = res["snapshot_path"]
+        t = time.perf_counter()
+        snap = load_snapshot(snap_path)
+        out["snapshot_load_s"] = time.perf_counter() - t
+        t = _sync()
+        cd = evaluate_consensus(snap, out_path=Path(tmp) / "consensus.pkl", device=DEV)
+        out["consensus_group_ms"] = (_sync() - t) * 1e3
+        counts = read_counts()
+        _record_path(rec, "train_dl", counts)
+        out["launches"] = counts
+
+        hist = writer.history
+        losses = [h["losses/loss_fold0"] for h in hist if "losses/loss_fold0" in h]
+        epoch_t = [h["_t"] for h in hist if "ref_epoch_idx" in h]
+        calls = timing["step_calls"]
+        per_epoch = len(calls) // cfg.epochs
+        out["epoch_train_s"] = [te - calls[k * per_epoch] for k, te in enumerate(epoch_t)]
+        gaps = [(b - a) * 1e3 for k, (a, b) in enumerate(zip(calls, calls[1:]))
+                if (k + 1) % per_epoch]
+        out["step_ms_median"] = statistics.median(gaps)
+        out["mean_step_time_ms"] = res["mean_step_time"] * 1e3
+        nval = len(timing["val_s"]) // cfg.epochs
+        out["val_s_per_epoch"] = [sum(timing["val_s"][k * nval:(k + 1) * nval])
+                                  for k in range(cfg.epochs)]
+        out["export_s"] = timing["export_s"][0]
+        host = {k: timing[k] for k in ("step_host_s", "sample_batch_s", "draw_s", "copy_s")}
+        # A step's host work: the launches, the batch, the draws, the copies
+        # of the batch and of the draws (two _to_device calls a step).
+        out["host_ms_per_step"] = {
+            "launch": statistics.median(host["step_host_s"]) * 1e3,
+            "sample_batch": statistics.median(host["sample_batch_s"][-len(calls):]) * 1e3,
+            "draws": statistics.median(host["draw_s"]) * 1e3,
+            "copies": statistics.median(
+                a + b for a, b in zip(host["copy_s"][0::2], host["copy_s"][1::2])) * 1e3,
+        }
+        out["checkpoint_s"] = timing["checkpoint_s"]
+        out["losses"] = losses
+        val = [h["scores/val_dice_mean_wo_bg_fold0"] for h in hist
+               if "scores/val_dice_mean_wo_bg_fold0" in h]
+        log(f"[train_dl] train_dl {out['train_dl_s']:.1f} s: epochs (train part) "
+            f"{', '.join(f'{s:.2f}' for s in out['epoch_train_s'])} s, step {out['step_ms_median']:.1f} "
+            f"ms (median gap between step calls; driver's mean_step_time "
+            f"{out['mean_step_time_ms']:.1f}), validation "
+            f"{', '.join(f'{s:.2f}' for s in out['val_s_per_epoch'])} s an epoch, checkpoints "
+            f"{', '.join(f'{s:.2f}' for s in out['checkpoint_s'])} s, snapshot export "
+            f"{out['export_s']:.2f} s, peak memory {out['peak_mem_gb']:.2f} GB")
+        log("[train_dl] host ms a step (medians): " + ", ".join(
+            f"{k} {v:.1f}" for k, v in out["host_ms_per_step"].items()))
+        log(f"[train_dl] losses {losses}, val Dice {val}; launches in train_dl {train_counts}, "
+            f"grad_x by stride {out['grad_x_launches_by_stride']}; snapshot load "
+            f"{out['snapshot_load_s']:.2f} s, consensus {out['consensus_group_ms']:.1f} ms (one "
+            f"group of {len(cd)} cases); launches in the phase {counts}")
+
+        # Checks.
+        if not (len(losses) == cfg.epochs and all(math.isfinite(v) for v in losses)):
+            raise AssertionError(f"train_dl losses {losses}")
+        dp = res["state"].dp_params.cpu()
+        train = torch.as_tensor(res["train_idxs"])
+        outside = torch.ones(len(dp), dtype=torch.bool)
+        outside[train] = False
+        if not (bool((dp[train] != 0).all()) and bool((dp[outside] == 0).all())):
+            raise AssertionError(f"DP rows: trained moved {(dp[train] != 0).tolist()}, "
+                                 f"others {dp[outside].tolist()}")
+        for epx in range(cfg.epochs):
+            saved = torch.load(root / "models" / f"smoke_fold0_epx{epx}" / "state.pt",
+                               map_location="cpu", weights_only=True)
+            if not saved["optimizer"]["state"] or saved["dp_opt_state"] is None or \
+                    int(saved["dp_opt_state"]["count"]) != saved["step"]:
+                raise AssertionError(f"checkpoint epx{epx} lacks an optimizer state")
+        model, _ = driver.make_model(cfg, 2)
+        fresh = create_state(model, len(dataset), seed=seed + 1, device=DEV)
+        differ = _states_equal(restore_checkpoint(root / "models" / "smoke_fold0_epx2", fresh),
+                               res["state"])
+        if differ:
+            raise AssertionError(f"restored epx2 differs from the final state: {differ[:5]}")
+        keys = ["d_ids", "data_parameters", "dataset_idxs", "disturb_flags", "image_paths",
+                "label_paths", "labels", "modified_labels", "train_predictions"]
+        pred = snap["train_predictions"]
+        if sorted(snap) != keys or not np.all(np.diff(snap["data_parameters"]) >= 0) or \
+                pred.shape != (len(train), *(2 * n for n in TRAIN_DL_SIZE)) or \
+                not set(np.unique(pred)) <= {0, 1}:
+            raise AssertionError(f"snapshot: keys {sorted(snap)}, predictions {pred.shape} "
+                                 f"{np.unique(pred)}")
+        dices = [float(v) for fixed in cd.values()
+                 for v in np.asarray(fixed["staple_consensus_oracle_dice"]).ravel()]
+        dices += [float(v) for fixed in cd.values()
+                  for v in np.asarray(fixed["dp_consensus_oracle_dice"]).ravel()]
+        out["consensus_dice_range"] = [min(dices), max(dices)]
+        if not all(0.0 <= v <= 1.0 for v in dices):
+            raise AssertionError(f"consensus Dice outside [0, 1]: {dices}")
+        missing = [k for k, n in out["grad_x_launches_by_stride"].items() if n == 0]
+        if missing:
+            raise AssertionError(f"train_dl launched no grad_x at stride {missing}")
+        del res, fresh, model, dataset, snap, pred, cd
+        torch.cuda.empty_cache()
+
+        # The card against the CPU, with the same draws.
+        card = _dl_small(Path(tmp) / "small_card", DEV, seed)
+        cpu = _dl_small(Path(tmp) / "small_cpu", "cpu", seed)
+    step_gaps = [abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(card[0], cpu[0])]
+    ce_gaps = [abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(card[0], cpu[0])]
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(card[1], cpu[1]))
+    dp_scale = float(np.abs(cpu[2]).max())
+    dp_gap = float(np.abs(card[2] - cpu[2]).max())
+    out["card_vs_cpu"] = {"step_losses_card": card[0], "step_losses_cpu": cpu[0],
+                          "losses_card": card[1], "losses_cpu": cpu[1],
+                          "step_rel_gaps": step_gaps, "step_ce_rel_gaps": ce_gaps,
+                          "loss_rel_gap": loss_gap, "dp_max_abs_gap": dp_gap,
+                          "dp_max_abs": dp_scale}
+    log(f"[train_dl] card vs CPU ({TRAIN_DL_SMALL['cases']} x {TRAIN_DL_SMALL['atlases']} at "
+        f"{TRAIN_DL_SMALL['size']}, float32, 2 epochs, lr 1e-4, optimizers warm): each step's "
+        f"loss gap {', '.join(f'{g:.2e}' for g in step_gaps)} (the first's bound "
+        f"{TRAIN_DL_STEP1_RTOL}), its CE's {', '.join(f'{g:.2e}' for g in ce_gaps)}; epoch means "
+        f"{card[1]} vs {cpu[1]}, largest relative gap {loss_gap:.2e} (bound "
+        f"{TRAIN_DL_LOSS_RTOL}); DP max |diff| {dp_gap:.2e} of max |DP| {dp_scale:.2e} (bound "
+        f"{TRAIN_DL_DP_RTOL} of it)")
+    if not (step_gaps[0] <= TRAIN_DL_STEP1_RTOL and loss_gap <= TRAIN_DL_LOSS_RTOL
+            and dp_scale > 0 and dp_gap <= TRAIN_DL_DP_RTOL * dp_scale):
+        raise AssertionError("train_dl: the card and the CPU disagree")
 
 
 # ----------------------------------------------------------------- consensus
@@ -1764,6 +2096,8 @@ def main(argv=None):
     if "consensus" in phases:
         phase_consensus(rec, args.seed, *cons)
     del cons
+    if "train_dl" in phases:
+        phase_train_dl(rec, args.seed)
     if "times" in phases:
         phase_times(rec, args.seed)
     rec["seconds"] = time.perf_counter() - t0

@@ -242,7 +242,10 @@ class ASPP3D(nn.Module):
         if remat.replaying():
             generator = torch.Generator(device=generator.device)
             generator.set_state(state)
-        keep = torch.rand(y.shape, generator=generator, device=y.device) >= self.dropout_rate
+        # Drawn on the generator's device: a CPU generator gives the same mask
+        # to a model on any device.
+        keep = torch.rand(y.shape, generator=generator, device=generator.device) >= self.dropout_rate
+        keep = keep.to(y.device, non_blocking=True)
         return torch.where(keep, y / (1.0 - self.dropout_rate), 0.0)
 
 

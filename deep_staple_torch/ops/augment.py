@@ -89,13 +89,16 @@ def post_spatial(base_spatial, factor: float):
 
 
 def draw_augment(generator: torch.Generator, base_shape, params: AugmentParams = AugmentParams(),
-                 pre_interpolation_factor: float = 1.5) -> AugmentDraws:
+                 pre_interpolation_factor: float = 1.5,
+                 noise_generator: torch.Generator | None = None) -> AugmentDraws:
     """Every random number of one batch's augmentation, from `generator`, on
     its device. base_shape: (B, D, H, W) of the images before
     interpolation. The distributions are those of `make_augment_parts`
     (`augment.py:159-197`): per-sample coins, unit-normal control points
     scaled by the post-interpolation extents, a normal affine perturbation
-    and a random translation direction."""
+    and a random translation direction. `noise_generator`, when given,
+    draws the image noise (the one draw of the batch's size) on its own
+    device instead."""
     dev = generator.device
     B = int(base_shape[0])
     n = params.bspline_num_ctl_points
@@ -106,7 +109,11 @@ def draw_augment(generator: torch.Generator, base_shape, params: AugmentParams =
     def normal(*shape):
         return torch.randn(shape, generator=generator, device=dev)
 
-    noise = normal(*base_shape)
+    if noise_generator is None:
+        noise = normal(*base_shape)
+    else:
+        noise = torch.randn(tuple(base_shape), generator=noise_generator,
+                            device=noise_generator.device)
     do_bspline = (uniform(B) < params.bspline_probability).float()
     do_affine = (uniform(B) < params.affine_probability).float()
     ctl = smooth_ctl(normal(B, 3, n, n, n), params.bspline_strength,

@@ -169,7 +169,8 @@ def depthwise_conv3d_fwd(x, kernel, stride: int = 1):
 def depthwise_conv3d_grad_x(g, kernel, stride: int, in_shape):
     """The input gradient of the forward at input shape `in_shape`, in g's
     dtype: `depthwise_conv3d_grad_x_plain` on the CPU, the kernel on CUDA
-    (counted in `depthwise_conv3d_grad_x.launches`)."""
+    (counted in `depthwise_conv3d_grad_x.launches`, and by stride in
+    `.launches_by_stride`)."""
     in_shape = tuple(int(n) for n in in_shape)
     if not _on_cuda(g):
         return depthwise_conv3d_grad_x_plain(g, kernel, stride, in_shape)
@@ -183,6 +184,7 @@ def depthwise_conv3d_grad_x(g, kernel, stride: int, in_shape):
                           int(g.dtype == torch.bfloat16), stride, B, D, H, W, C, _stream(g))
     cuda_build.check(lib, err, "depthwise_conv3d_grad_x")
     depthwise_conv3d_grad_x.launches += 1
+    depthwise_conv3d_grad_x.launches_by_stride[stride] += 1
     return gx
 
 
@@ -215,6 +217,7 @@ def depthwise_conv3d_grad_w(x, g, stride: int):
 
 depthwise_conv3d_fwd.launches = 0
 depthwise_conv3d_grad_x.launches = 0
+depthwise_conv3d_grad_x.launches_by_stride = {1: 0, 2: 0}
 depthwise_conv3d_grad_w.launches = 0
 
 

@@ -36,7 +36,7 @@ from .core.device import resolve_device
 from .data.crossmoda import _prep_volume
 from .data.nifti import load_nifti, save_nifti
 from .data.np_ops import resize_nd_np
-from .train.checkpoint import load_config, restore_checkpoint
+from .train.checkpoint import load_config, restore_weights
 from .train.driver import make_model
 from .train.step import make_eval_step
 
@@ -58,7 +58,7 @@ def load_serving_state(checkpoint_dir, device=None):
     config = load_config(checkpoint_dir)
     num_classes = 2
     model, _ = make_model(config, num_classes=num_classes)
-    dp_params = restore_checkpoint(checkpoint_dir, model)
+    dp_params = restore_weights(checkpoint_dir, model)
     return model.to(device).eval(), config, dp_params, num_classes
 
 

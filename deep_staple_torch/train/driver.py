@@ -1,19 +1,98 @@
-"""Training driver: the models (`deep_staple_tpu/train/driver.py:75-99`) and
-the slab-warmup model of the async-BatchNorm schedule (`:393-418`).
-`train_dl` comes with slice 4 of the port."""
+"""Training driver: folds -> epochs -> train steps on the card
+(`deep_staple_tpu/train/driver.py`, after `train_DL`,
+`main_deep_staple.py:491-1086`).
+
+The deterministic split (every atlas_count-th 3D index of the first
+num_val_images fixed images is validation, :554-558), optional label
+disturbance, the per-sample metric precompute (class weights, fixed
+weighting), the epoch and batch loop with the reference's scheduler quirk
+(ExponentialLR stepped per batch only in epochs where epx % atlas_count == 0,
+:794-795), per-epoch validation at the eval scale, DP-Dice correlations,
+periodic checkpoints and the train_label_snapshot export.
+
+Random numbers: the host's numpy stream (`reset_determinism`) gives the
+disturbed indices and the epoch permutations in the JAX driver's order, so
+both packages split and order a run alike. The augmentation's small draws
+(coins, affine matrices, control points, directions) come from one CPU
+`torch.Generator` seeded by seed + 1000 * fold (the JAX driver's PRNG key,
+:420) and are moved to the model's device, so a run on the card and one on
+the CPU see the same warps. The two draws of a tensor's size, the image
+noise (the batch's size) and the ASPP dropout mask (the ASPP output's), come
+from a generator on the model's device seeded from the CPU one: drawn on the
+host they would cost it more than the step's launches (about 0.5 s a
+production step). `draws_on_host=True` takes those from the CPU generator
+too, so that a run on any device sees every number of a run on the CPU.
+
+Options of later slices raise NotImplementedError naming the slice: the
+device mesh, pipeline parallelism and multi-host runs (slice 6), the 2D and
+MIND paths and the augment orders `ops/augment.py` rejects (slice 5), and
+the figures (slice 4d).
+"""
 
 from __future__ import annotations
 
+import re
+import time
+from pathlib import Path
+
+import numpy as np
 import torch
 
-from ..core.config import TrainConfig
+from ..core.config import DataParamMode, TrainConfig
+from ..core.determinism import reset_determinism
+from ..core.device import resolve_device
 from ..models import MobileNetLRASPP3D
+from ..ops.augment import AugmentDraws, AugmentParams, check_order, draw_augment
+from ..ops.dice import batch_dice_over_all, batch_dice_per_class, dice_from_int_labels
+from ..ops.resample import interpolate_sample
+from ..utils.logging import MetricWriter, get_global_idx, log_class_dices, log_data_parameter_stats
+from .checkpoint import check_backend, checkpoint_exists, restore_checkpoint, save_checkpoint
+from .optim import exp_lr
+from .snapshot import export_train_label_snapshot
+from .state import create_state
+from .step import make_eval_step, make_train_step, resolve_augment_order
+
+
+def dp_in_target_pos_ratio(dp_values, disturbed_idxs, target_pos: str = "min") -> float:
+    """Fraction of disturbed samples found among the |disturbed| lowest (or
+    highest) data parameters: the reference's oracle metric that DPs find
+    corrupted labels (`calc_inst_parameters_in_target_pos_ratio`,
+    main_deep_staple.py:320-333)."""
+    assert target_pos in ("min", "max")
+    disturbed_idxs = np.asarray(disturbed_idxs)
+    if disturbed_idxs.size == 0:
+        return float("nan")
+    order = np.argsort(np.asarray(dp_values))
+    if target_pos == "max":
+        order = order[::-1]
+    target = set(order[: len(disturbed_idxs)].tolist())
+    return sum(1.0 for i in disturbed_idxs if int(i) in target) / len(disturbed_idxs)
+
+
+def pearson_corr(a, b):
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    if a.std() == 0 or b.std() == 0:
+        return float("nan")
+    return float(np.corrcoef(a, b)[0, 1])
+
+
+def spearman_corr(a, b):
+    """Spearman rho without scipy: Pearson on tie-averaged ranks."""
+
+    def _rank(x):
+        _, inv, counts = np.unique(x, return_inverse=True, return_counts=True)
+        csum = np.cumsum(counts) - 1
+        start = csum - counts + 1
+        return ((start + csum) / 2.0)[inv]
+
+    return pearson_corr(_rank(np.asarray(a)), _rank(np.asarray(b)))
 
 
 def make_model(config: TrainConfig, num_classes: int):
     """-> (model, input channels). The 3D model only for now."""
     if config.use_2d_normal_to is not None:
-        raise NotImplementedError("the 2D model comes with a later slice of the port")
+        raise NotImplementedError("the 2D model comes with slice 5 of the port (side paths)")
     in_ch = 12 if config.use_mind else 1
     dtype = torch.bfloat16 if config.compute_dtype == "bfloat16" else None
     model = MobileNetLRASPP3D(
@@ -37,3 +116,360 @@ def make_warmup_model(model, config: TrainConfig, num_classes: int):
         mod._parameters = mods[name]._parameters
         mod._buffers = mods[name]._buffers
     return warm
+
+
+def precompute_sample_metrics(dataset, train_idxs, num_classes: int, use_2d: bool, batch: int = 4,
+                              device=None):
+    """Per-sample Dice(label, modified label), gt voxel count and the class
+    bincount at the x2.0 eval scale (reference :626-656, on eval-mode
+    samples), on `device` (CUDA unless "cpu" is asked for)."""
+    dev = resolve_device(device)
+    n = len(dataset)
+    wise_dice = np.zeros((n, num_classes), np.float32)
+    gt_num = np.zeros((n,), np.float32)
+    bn_count = np.zeros((num_classes,), np.int64)
+
+    dataset.eval(use_modified=True)
+    idx_list = [int(i) for i in train_idxs]
+    for s in range(0, len(idx_list), batch):
+        chunk = idx_list[s : s + batch]
+        hb = dataset.sample_batch(chunk, use_modified=True)
+        lbl = interpolate_sample(None, torch.from_numpy(hb["label"]).to(dev), 2.0, use_2d)[1]
+        mod = interpolate_sample(None, torch.from_numpy(hb["modified_label"]).to(dev), 2.0, use_2d)[1]
+        dsc = dice_from_int_labels(lbl, mod, num_classes, nan_for_unlabeled_target=False)
+        gts = (mod > 0).reshape(len(chunk), -1).sum(dim=1).float()
+        bn = torch.bincount(mod.reshape(-1).long(), minlength=num_classes)[:num_classes]
+        wise_dice[chunk] = dsc.cpu().numpy()
+        gt_num[chunk] = gts.cpu().numpy()
+        bn_count += bn.cpu().numpy().astype(np.int64)
+
+    class_weights = 1.0 / np.power(bn_count.astype(np.float64), 0.35)
+    class_weights /= class_weights.mean()
+    fixed_weighting = np.log(gt_num + np.e) + np.e
+    return wise_dice, gt_num, bn_count, class_weights.astype(np.float32), fixed_weighting.astype(np.float32)
+
+
+def check_supported(config: TrainConfig):
+    """Raise NotImplementedError for an option that a later slice brings."""
+    if (config.mesh_data_axis > 1 or config.mesh_space_axis > 1 or config.mesh_model_axis > 1
+            or config.mesh_pipe_stages > 1):
+        raise NotImplementedError(
+            "the device mesh and pipeline parallelism (mesh_* > 1, mesh_pipe_stages > 1) come "
+            "with slice 6 of the port (parallelism)")
+    multi = (config.dist_num_processes or 1) > 1 or (
+        torch.distributed.is_available() and torch.distributed.is_initialized()
+        and torch.distributed.get_world_size() > 1)
+    if multi:
+        raise NotImplementedError("multi-host training comes with slice 6 of the port (parallelism)")
+    if config.use_2d_normal_to is not None or config.use_mind:
+        raise NotImplementedError(
+            "the 2D and MIND train paths come with slice 5 of the port (side paths)")
+    check_order(config.augment_order)
+    if config.save_dp_figures or config.do_plot:
+        raise NotImplementedError(
+            "save_dp_figures and do_plot come with slice 4d of the port (figures)")
+    check_backend(config.checkpoint_backend)
+
+
+def _to_device(host_batch: dict, dev: torch.device) -> dict:
+    """Host arrays -> tensors on `dev`; through pinned memory to the card, so
+    that the copy does not wait for the card's queue."""
+    out = {}
+    for k, v in host_batch.items():
+        t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(v))
+        if dev.type == "cuda" and t.device.type == "cpu":
+            t = t.pin_memory().to(dev, non_blocking=True)
+        out[k] = t
+    return out
+
+
+def _resume_point(config: TrainConfig, run_name: str, fold_idx: int):
+    """-> (first epoch, checkpoint path) of the JAX driver's resume rules
+    (`driver.py:301-320`): an explicit checkpoint_epx re-runs that epoch from
+    its checkpoint; auto_resume continues after the newest one."""
+    epx_start = config.checkpoint_epx or 0
+    ckpt_name = config.checkpoint_name or run_name
+    prefix = Path(config.mdl_save_prefix)
+    ckpt_path = prefix / f"{ckpt_name}_fold{fold_idx}_epx{epx_start}"
+    if config.auto_resume and config.checkpoint_epx is None:
+        pat = re.compile(rf"^{re.escape(ckpt_name)}_fold{fold_idx}_epx(\d+)$")
+        newest = -1
+        for d in prefix.glob(f"{ckpt_name}_fold{fold_idx}_epx*"):
+            m = pat.match(d.name)
+            if m and checkpoint_exists(d):
+                newest = max(newest, int(m.group(1)))
+        if newest >= 0:
+            ckpt_path = prefix / f"{ckpt_name}_fold{fold_idx}_epx{newest}"
+            epx_start = newest + 1
+            print(f"Auto-resume: newest checkpoint {ckpt_path}, continuing at epoch {epx_start}")
+    return epx_start, ckpt_path
+
+
+def _start_profile(dev: torch.device):
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    prof = profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def train_dl(run_name: str, config: TrainConfig, dataset, atlas_count=None,
+             writer: MetricWriter | None = None, device=None, draws_on_host: bool = False):
+    """Train on `device` (CUDA unless "cpu" is asked for). Returns
+    {fold: {"state", "snapshot_path", "train_idxs", "clean_idxs", "wise_dice",
+    "mean_step_time", "writer"}} as the JAX driver does."""
+    check_supported(config)
+    dev = resolve_device(device)
+    reset_determinism(config.seed)
+    atlas_count = atlas_count if atlas_count is not None else config.atlas_count
+    writer = writer or MetricWriter(
+        jsonl_path=str(Path(config.output_dir) / f"{run_name}_metrics.jsonl")
+        if config.log_jsonl else None,
+    )
+
+    use_dp = config.data_param_mode == DataParamMode.INSTANCE_PARAMS
+    num_classes = len(dataset.label_tags)
+    results = {}
+
+    num_folds = 1 if config.only_first_fold or config.fold_override is not None else config.num_folds
+    fold_range = (
+        [config.fold_override] if config.fold_override is not None else list(range(num_folds))
+    )
+
+    for fold_idx in fold_range:
+        if config.debug:
+            num_val_images, fold_atlas_count = 2, 1
+        else:
+            num_val_images, fold_atlas_count = config.num_val_images, atlas_count
+
+        all_len = dataset.__len__(use_2d_override=False)
+        val_3d_idxs = list(range(0, min(num_val_images * fold_atlas_count, all_len), fold_atlas_count))
+        train_idxs = np.asarray(list(range(min(num_val_images * fold_atlas_count, all_len), all_len)))
+        print(f"Fold {fold_idx}: {len(train_idxs)} train instances, {len(val_3d_idxs)} val images")
+
+        # --- optional label disturbance (reference :564-587) ---
+        if config.disturbed_percentage > 0.0:
+            _, _, all_mod = dataset.get_data()
+            sums = all_mod[train_idxs].reshape(len(train_idxs), -1).sum(-1)
+            non_empty = train_idxs[sums > 0]
+            k = int(len(non_empty) * config.disturbed_percentage)
+            proposed = np.random.choice(non_empty, size=k, replace=False)
+            dataset.disturb_idxs(
+                proposed,
+                disturbance_mode=config.disturbance_mode,
+                disturbance_strength=config.disturbance_strength,
+            )
+        disturbed_bool_vect = np.zeros(len(dataset), np.float32)
+        if dataset.disturbed_idxs:
+            disturbed_bool_vect[np.asarray(dataset.disturbed_idxs)] = 1.0
+        clean_idxs = train_idxs[~np.isin(train_idxs, dataset.disturbed_idxs)]
+        print("Disturbed indexes:", sorted(dataset.disturbed_idxs))
+
+        # --- per-sample metric precompute (reference :626-656) ---
+        wise_dice, gt_num, bn_count, class_weights, fixed_weighting = precompute_sample_metrics(
+            dataset, train_idxs, num_classes, False, device=dev
+        )
+
+        # --- model + state ---
+        model, _ = make_model(config, num_classes)
+        dp_override_values = None
+        if use_dp and config.override_embedding_weights:
+            from ..data.snapshot_io import load_snapshot
+
+            snap = load_snapshot(config.fixed_weight_file)
+            ids = dataset.get_3d_ids()
+            dp_override_values = np.zeros(len(dataset), np.float32)
+            for _id, w in zip(snap["d_ids"], np.asarray(snap["data_parameters"]).reshape(-1)):
+                if _id in ids:
+                    dp_override_values[ids.index(_id)] = w
+
+        state = create_state(
+            model,
+            dataset_len=len(dataset),
+            seed=config.seed,
+            init_inst_param=config.init_inst_param,
+            use_data_params=use_dp,
+            dp_override_values=dp_override_values,
+            device=dev,
+        )
+
+        epx_start, ckpt_path = _resume_point(config, run_name, fold_idx)
+        epx = max(epx_start - 1, 0)  # snapshot dir name if the loop is empty
+        if checkpoint_exists(ckpt_path):
+            print(f"Restoring checkpoint from {ckpt_path}")
+            state = restore_checkpoint(ckpt_path, state)
+
+        pre_interp = dataset.pre_interpolation_factor
+        effective_order = resolve_augment_order(config.augment_order, num_classes)
+        if effective_order != config.augment_order:
+            print(
+                f"augment_order {config.augment_order!r} supports binary labels only; "
+                f"using {effective_order!r} ({num_classes} classes)"
+            )
+            config = config.replace(augment_order=effective_order)
+        check_order(config.augment_order)
+        augment_params = AugmentParams()
+        train_step = make_train_step(
+            model, config, class_weights, fixed_weighting, augment_params,
+            pre_interpolation_factor=pre_interp,
+        )
+        eval_step = make_eval_step(model, config, num_classes)
+        # Async-BN warmup: the first bn_warmup_epochs run the slab-BN model,
+        # which shares every parameter and buffer with `model`
+        # (`driver.py:393-418`).
+        warmup_step, warmup_epochs = None, 0
+        if config.bn_mode == "async" and config.bn_warmup_epochs > 0:
+            warmup_epochs = config.bn_warmup_epochs
+            warmup_step = make_train_step(
+                make_warmup_model(model, config, num_classes), config, class_weights,
+                fixed_weighting, augment_params, pre_interpolation_factor=pre_interp,
+            )
+
+        gen = torch.Generator().manual_seed(config.seed + 1000 * fold_idx)
+        if draws_on_host:
+            dev_gen = gen
+        else:
+            dev_gen = torch.Generator(device=dev)
+            dev_gen.manual_seed(int(torch.randint(2**62, (1,), generator=gen)))
+        t_start = time.time()
+        sched_steps = int(state.sched_steps)
+        step_times = []
+
+        for epx in range(epx_start, config.epochs):
+            global_idx = get_global_idx(fold_idx, epx, config.epochs)
+            dataset.train(use_modified=True)
+
+            profiling = config.profile_dir is not None and epx == config.profile_epoch
+            prof = _start_profile(dev) if profiling else None
+
+            perm = np.random.permutation(train_idxs)
+            epx_losses, dices, class_dices = [], [], []
+
+            # One-step-deferred metric readback (`driver.py:436-442`): step k's
+            # loss and Dice are read after step k+1 is launched, so that the
+            # host assembles the next batch while the card computes.
+            pending_metrics = None
+
+            def _consume(metrics_dev):
+                epx_losses.append(float(metrics_dev["loss"]))
+                b_dice = metrics_dev["dice"].cpu().numpy()
+                dices.append(batch_dice_over_all(b_dice, exclude_bg=True))
+                class_dices.append(batch_dice_per_class(b_dice, dataset.label_tags, exclude_bg=True))
+
+            for bstart in range(0, len(perm), config.batch_size):
+                bidx = perm[bstart : bstart + config.batch_size]
+                host_batch = dataset.sample_batch(bidx)
+                draws = draw_augment(gen, host_batch["image"].shape, augment_params, pre_interp,
+                                     noise_generator=dev_gen)
+                batch = _to_device(host_batch, dev)
+                draws = AugmentDraws(*_to_device(draws._asdict(), dev).values())
+
+                lr = exp_lr(config.lr, sched_steps)
+                step_fn = warmup_step if epx < warmup_epochs and warmup_step is not None else train_step
+                t0 = time.time()
+                state, metrics = step_fn(state, batch, lr, generator=dev_gen, draws=draws)
+                if pending_metrics is not None:
+                    _consume(pending_metrics)
+                pending_metrics = metrics
+                step_times.append(time.time() - t0)
+
+                # Scheduler quirk: step per batch when epx % atlas_count == 0 (:794-795).
+                if config.use_scheduling and epx % fold_atlas_count == 0:
+                    sched_steps += 1
+
+                if config.debug:
+                    break
+
+            if pending_metrics is not None:
+                _consume(pending_metrics)
+
+            if prof is not None:
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                prof.stop()
+                Path(config.profile_dir).mkdir(parents=True, exist_ok=True)
+                trace = Path(config.profile_dir) / f"{run_name}_fold{fold_idx}_epx{epx}.trace.json"
+                prof.export_chrome_trace(str(trace))
+                print(f"profiler trace written to {trace}")
+
+            state.sched_steps = sched_steps
+
+            # --- epoch logging (reference :811-854) ---
+            print(f"### Log epoch {epx} @ {time.time()-t_start:.2f}s")
+            writer.log({"ref_epoch_idx": epx}, step=global_idx)
+            writer.log({f"losses/loss_fold{fold_idx}": float(np.mean(epx_losses))}, step=global_idx)
+            mean_dice = float(np.nanmean(dices))
+            print(f"dice_mean_wo_bg_fold{fold_idx} {mean_dice*100:.2f}%")
+            writer.log({f"scores/dice_mean_wo_bg_fold{fold_idx}": mean_dice}, step=global_idx)
+            log_class_dices(writer, "scores/dice_mean_", f"_fold{fold_idx}", class_dices, global_idx)
+
+            if use_dp:
+                dp_host = state.dp_params.cpu().numpy()
+                train_params = dp_host[train_idxs]
+                order = np.argsort(train_params)
+                target_dice = wise_dice[train_idxs][:, 1]
+                pcc = pearson_corr(train_params[order], target_dice[order])
+                scc = spearman_corr(train_params[order], target_dice[order])
+                writer.log(
+                    {
+                        f"data_parameters/pearson_corr_coeff_fold{fold_idx}": pcc,
+                        f"data_parameters/spearman_corr_coeff_fold{fold_idx}": scc,
+                    },
+                    step=global_idx,
+                )
+                log_data_parameter_stats(
+                    writer, f"data_parameters/iter_stats_fold{fold_idx}", global_idx, dp_host
+                )
+
+            if (epx % config.save_every == 0) or (epx + 1 == config.epochs):
+                _path = Path(config.mdl_save_prefix) / f"{run_name}_fold{fold_idx}_epx{epx}"
+                save_checkpoint(_path, state, config, backend=config.checkpoint_backend)
+
+            # --- validation (reference :876-955): always full 3D volumes ---
+            dataset.eval()
+            val_dices, val_class_dices = [], []
+            for val_idx in val_3d_idxs:
+                s3 = dataset.get_3d_item(val_idx)
+                val_batch = _to_device({
+                    "image": s3["image"][None].astype(np.float32),
+                    "label": s3["label"][None].astype(np.int32),
+                }, dev)
+                _, b_dice = eval_step(val_batch)
+                b_dice = b_dice.cpu().numpy()
+                val_dices.append(batch_dice_over_all(b_dice, exclude_bg=True))
+                val_class_dices.append(batch_dice_per_class(b_dice, dataset.label_tags, exclude_bg=True))
+            mean_val = float(np.nanmean(val_dices)) if val_dices else float("nan")
+            print(f"val_dice_mean_wo_bg_fold{fold_idx} {mean_val*100:.2f}%")
+            writer.log({f"scores/val_dice_mean_wo_bg_fold{fold_idx}": mean_val}, step=global_idx)
+            log_class_dices(writer, "scores/val_dice_mean_", f"_fold{fold_idx}", val_class_dices, global_idx)
+
+            if config.debug:
+                break
+
+        # --- snapshot export (reference :963-1045) ---
+        snapshot_path = None
+        if use_dp:
+            snapshot_path = (
+                Path(config.output_dir) / f"{run_name}_fold{fold_idx}_epx{epx}" / "train_label_snapshot.npz"
+            )
+            snapshot = export_train_label_snapshot(
+                snapshot_path, state, model, config, dataset, train_idxs, disturbed_bool_vect,
+                save_labels=config.save_labels,
+            )
+            if config.export_pth_snapshot:
+                from ..data.snapshot_io import save_snapshot_pth
+
+                save_snapshot_pth(snapshot_path.with_suffix(".pth"), snapshot)
+
+        results[fold_idx] = {
+            "state": state,
+            "snapshot_path": snapshot_path,
+            "train_idxs": train_idxs,
+            "clean_idxs": clean_idxs,
+            "wise_dice": wise_dice,
+            "mean_step_time": float(np.mean(step_times[2:])) if len(step_times) > 2 else float("nan"),
+            "writer": writer,
+        }
+
+    return results

@@ -42,11 +42,12 @@ def make_dp_state(dataset_len: int, init_inst_param: float = 0.0, dp_override_va
 def create_state(model: nn.Module, dataset_len: int, seed: int = 0, init_inst_param: float = 0.0,
                  use_data_params: bool = True, dp_override_values=None,
                  weight_decay: float = 0.01, device=None) -> DeepStapleState:
-    """Move `model` to `device` (CUDA unless "cpu" is asked for), draw its
-    parameters from `seed` (`init_weights`), and build the optimizers."""
+    """Draw `model`'s parameters from `seed` (`init_weights`) on the CPU, so
+    that every device starts from the same weights, move it to `device`
+    (CUDA unless "cpu" is asked for), and build the optimizers."""
     dev = resolve_device(device)
+    init_weights(model.cpu(), torch.Generator().manual_seed(seed))
     model.to(dev)
-    init_weights(model, torch.Generator(device=dev).manual_seed(seed))
     dp, dp_opt = (make_dp_state(dataset_len, init_inst_param, dp_override_values, dev)
                   if use_data_params else (None, None))
     return DeepStapleState(

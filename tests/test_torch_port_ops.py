@@ -234,6 +234,12 @@ def test_port_imports_no_jax():
     every interpreter starts with jax imported)."""
     files = sorted((REPO / "deep_staple_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) >= 17
+    rel = {str(f.relative_to(REPO)) for f in files}
+    driver_slice = {f"deep_staple_torch/{m}.py" for m in (
+        "core/determinism", "utils/logging", "ops/dice", "data/nifti_sets", "data/synthetic",
+        "data/disturbance", "data/hybrid_dataset", "data/crossmoda", "train/prepare",
+        "train/checkpoint", "train/infer", "train/snapshot", "train/driver")}
+    assert driver_slice <= rel
     banned = ("jax", "jaxlib", "flax", "optax", "deep_staple_tpu")
     bad = [
         (str(f.relative_to(REPO)), mod)

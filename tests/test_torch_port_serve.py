@@ -25,7 +25,7 @@ from deep_staple_torch.models.interop import load_flax_variables
 from deep_staple_torch.ops.resample import interpolate_sample
 from deep_staple_torch.serve import main as serve_main
 from deep_staple_torch.serve import preprocess
-from deep_staple_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+from deep_staple_torch.train.checkpoint import restore_weights, save_weights
 from deep_staple_torch.train.driver import make_model
 
 torch.set_num_threads(1)
@@ -78,7 +78,7 @@ def served(tmp_path_factory):
     margin = float((logits[..., 1] - logits[..., 0]).median())
     variables["params"]["head"]["Conv_1"]["bias"][1] -= margin
     load_flax_variables(model, variables)
-    save_checkpoint(tmp / "ckpt_port", model, np.asarray(state.dp_params), cfg)
+    save_weights(tmp / "ckpt_port", model, np.asarray(state.dp_params), cfg)
     state = state.replace(params=variables["params"], batch_stats=variables["batch_stats"])
     jax_save_checkpoint(tmp / "ckpt_jax", state, jcfg)
 
@@ -121,7 +121,7 @@ def test_serve_label_maps_match_jax(served, i):
 def test_port_checkpoint_restores_dp_length(served):
     tmp, _ = served
     model, _ = make_model(TrainConfig(crop_3d_w_dim_range=None), 2)
-    dp = restore_checkpoint(tmp / "ckpt_port", model)
+    dp = restore_weights(tmp / "ckpt_port", model)
     assert dp.shape == (5,) and dp.dtype == torch.float32
 
 
