@@ -5,7 +5,7 @@
 
     phases: device, build, kernels, train_kernels, consensus_kernels, serve,
             e2e, profile, train, train_e2e, train_profile, consensus,
-            train_dl, times (default: all)
+            train_dl, pipeline, oracle, times (default: all)
 
 Run from the repository root. It builds every kernel of the port from the
 sources in the checkout (one nvcc per source, all at once), holds each
@@ -33,7 +33,15 @@ give it, and drives both main paths at full size:
     `prepare_data`, `train_dl` in the production configuration (3 epochs
     of 3 steps at batch 8, validation, a checkpoint every epoch, the
     snapshot export), `evaluate_consensus` on that snapshot, and a small
-    float32 run on the card against the CPU with the same draws.
+    float32 run on the card against the CPU with the same draws;
+  * the pipeline: `deep_staple_torch.pipeline.main` with `--preset
+    production` and no --device on the same fixture (2 epochs, the
+    snapshot, its consensus, the nnU-Net export), its summary and files
+    checked; then `python -m deep_staple_torch.main` in a subprocess on a
+    3 x 2 fixture at 24^3;
+  * the oracle: the two DP-recovery cases of
+    `tests/test_torch_port_recovery.py` (10 epochs at 16^3, augmentation
+    on) with their thresholds.
 
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after. It times each kernel beside its bound, its plain
@@ -63,7 +71,8 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 WORK = REPO / "build" / "chip_smoke"
 PHASES = ("device", "build", "kernels", "train_kernels", "consensus_kernels", "serve", "e2e",
-          "profile", "train", "train_e2e", "train_profile", "consensus", "train_dl", "times")
+          "profile", "train", "train_e2e", "train_profile", "consensus", "train_dl", "pipeline",
+          "oracle", "times")
 
 # The depthwise conv's shapes at the serve CLI's defaults: size 128^3 with
 # crop (45, 95) gives 128x128x50, eval x2.0 gives 256x256x100 at the input,
@@ -187,6 +196,10 @@ PATH_KERNELS = {
     "consensus": ("staple_em_iter",),
     "train_dl": ("depthwise_conv3d_fwd", "depthwise_conv3d_grad_x", "depthwise_conv3d_grad_w",
                  "sep_warp_pass", "staple_em_iter"),
+    "pipeline": ("depthwise_conv3d_fwd", "depthwise_conv3d_grad_x", "depthwise_conv3d_grad_w",
+                 "sep_warp_pass", "staple_em_iter"),
+    "oracle": ("depthwise_conv3d_fwd", "depthwise_conv3d_grad_x", "depthwise_conv3d_grad_w",
+               "sep_warp_pass"),
 }
 # The device of the kernel and training phases. main() runs only with CUDA;
 # a CPU rehearsal of the control flow may import this module and set "cpu".
@@ -1269,9 +1282,21 @@ def _dl_small(root, device, seed):
     return step_losses, losses, res["state"].dp_params.cpu().numpy()
 
 
-def phase_train_dl(rec, seed):
+def write_dl_fixture(root, seed):
+    """The driver's synthetic fixture (TRAIN_DL_*), shared by the train_dl
+    and pipeline phases."""
+    from deep_staple_torch.data.synthetic import generate_synthetic_crossmoda
+
+    t = time.perf_counter()
+    generate_synthetic_crossmoda(root, num_cases=TRAIN_DL_CASES, atlas_count=TRAIN_DL_ATLASES,
+                                 bad_atlases_per_case=1, size=TRAIN_DL_SIZE, seed=seed)
+    log(f"[fixture] {TRAIN_DL_CASES} x {TRAIN_DL_ATLASES} at {TRAIN_DL_SIZE} written in "
+        f"{time.perf_counter() - t:.1f} s")
+
+
+def phase_train_dl(rec, seed, root):
     """The training half of the production pipeline through the port's entry
-    points: the synthetic fixture, `prepare_data`, `train_dl`, the snapshot
+    points on the fixture at `root`: `prepare_data`, `train_dl`, the snapshot
     and `evaluate_consensus` over it, with the checks of each; then the card
     against the CPU on a small run."""
     import tempfile
@@ -1280,7 +1305,6 @@ def phase_train_dl(rec, seed):
 
     from deep_staple_torch.consensus.evaluate import evaluate_consensus
     from deep_staple_torch.data.snapshot_io import load_snapshot
-    from deep_staple_torch.data.synthetic import generate_synthetic_crossmoda
     from deep_staple_torch.ops import conv3d_dw
     from deep_staple_torch.train import driver
     from deep_staple_torch.train.checkpoint import restore_checkpoint
@@ -1290,15 +1314,13 @@ def phase_train_dl(rec, seed):
 
     out = rec["train_dl"] = {}
     with tempfile.TemporaryDirectory(prefix="train_dl_") as tmp:
-        root = Path(tmp) / "full"
         t = time.perf_counter()
-        generate_synthetic_crossmoda(root, num_cases=TRAIN_DL_CASES, atlas_count=TRAIN_DL_ATLASES,
-                                     bad_atlases_per_case=1, size=TRAIN_DL_SIZE, seed=seed)
-        cfg = _dl_config(root, epochs=3, batch_size=8, num_val_images=2)
+        cfg = _dl_config(root, output_dir=str(Path(tmp) / "out"),
+                         mdl_save_prefix=str(Path(tmp) / "models"),
+                         epochs=3, batch_size=8, num_val_images=2)
         dataset, atlas_count = prepare_data(cfg)
-        out["fixture_and_prepare_s"] = time.perf_counter() - t
-        log(f"[train_dl] fixture {TRAIN_DL_CASES} x {TRAIN_DL_ATLASES} at {TRAIN_DL_SIZE} and "
-            f"prepare_data: {len(dataset)} instances in {out['fixture_and_prepare_s']:.1f} s")
+        out["prepare_s"] = time.perf_counter() - t
+        log(f"[train_dl] prepare_data: {len(dataset)} instances in {out['prepare_s']:.1f} s")
 
         timing, writer = {}, MetricWriter()
         undo = _instrument_driver(timing, dataset)
@@ -1380,14 +1402,14 @@ def phase_train_dl(rec, seed):
             raise AssertionError(f"DP rows: trained moved {(dp[train] != 0).tolist()}, "
                                  f"others {dp[outside].tolist()}")
         for epx in range(cfg.epochs):
-            saved = torch.load(root / "models" / f"smoke_fold0_epx{epx}" / "state.pt",
+            saved = torch.load(Path(tmp) / "models" / f"smoke_fold0_epx{epx}" / "state.pt",
                                map_location="cpu", weights_only=True)
             if not saved["optimizer"]["state"] or saved["dp_opt_state"] is None or \
                     int(saved["dp_opt_state"]["count"]) != saved["step"]:
                 raise AssertionError(f"checkpoint epx{epx} lacks an optimizer state")
         model, _ = driver.make_model(cfg, 2)
         fresh = create_state(model, len(dataset), seed=seed + 1, device=DEV)
-        differ = _states_equal(restore_checkpoint(root / "models" / "smoke_fold0_epx2", fresh),
+        differ = _states_equal(restore_checkpoint(Path(tmp) / "models" / "smoke_fold0_epx2", fresh),
                                res["state"])
         if differ:
             raise AssertionError(f"restored epx2 differs from the final state: {differ[:5]}")
@@ -1435,6 +1457,249 @@ def phase_train_dl(rec, seed):
     if not (step_gaps[0] <= TRAIN_DL_STEP1_RTOL and loss_gap <= TRAIN_DL_LOSS_RTOL
             and dp_scale > 0 and dp_gap <= TRAIN_DL_DP_RTOL * dp_scale):
         raise AssertionError("train_dl: the card and the CPU disagree")
+
+
+# ----------------------------------------------------------------- the CLIs
+
+# The pipeline phase: `deep_staple_torch.pipeline.main` in-process, as a
+# user runs `python -m deep_staple_torch.pipeline --preset production`, with
+# no --device, on the train_dl phase's fixture (8 cases x 4 atlases at
+# 128x128x50): 2 epochs of 3 steps at batch 8, the snapshot, its consensus
+# (6 fixed images x 4 atlases at 256x256x100, 200 STAPLE iterations at most)
+# and the nnU-Net export (3 task folders of 6 label volumes). Then the
+# training CLI `python -m deep_staple_torch.main` as a subprocess on 3 cases
+# x 2 atlases at 24^3 for 1 epoch, in the reference-default configuration.
+PIPELINE_ARGS = ("--preset", "production", "--epochs", "2", "--batch-size", "8",
+                 "--num-val-images", "2", "--staple-iterations", "200")
+MAIN_CLI_FIXTURE = dict(num_cases=3, atlas_count=2, size=(24, 24, 24))
+MODEL_PARAMETERS = 1_228_932
+
+
+def _fixture_args(root, out):
+    """The fixture's and the outputs' flags; no --device on the card (a CPU
+    rehearsal asks for its device)."""
+    return ["--dataset", "synthetic", "--reg-state", "synthetic", "--dataset-directory", str(root),
+            "--crop-3d-w-dim-range", "none", "--output-dir", str(out / "out"),
+            "--mdl-save-prefix", str(out / "models"), *([] if DEV == "cuda" else ["--device", DEV])]
+
+
+def _instrument_pipeline(timing, held):
+    """Time the pipeline's stages from outside (synced): training
+    (`normal_run`, whose results are kept in `held`), the consensus and the
+    nnU-Net export. Returns a function that undoes it."""
+    from deep_staple_torch import pipeline
+    from deep_staple_torch.consensus import evaluate
+    from deep_staple_torch.tools import nnunet_export
+
+    targets = ((pipeline, "normal_run", "train_s"), (evaluate, "evaluate_consensus", "consensus_s"),
+               (nnunet_export, "export_consensus_to_nnunet", "nnunet_s"))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in targets]
+
+    def timed(fn, key):
+        def run(*a, **k):
+            t = _sync()
+            out = fn(*a, **k)
+            timing[key] = timing.get(key, 0.0) + _sync() - t
+            held.setdefault(key, out)
+            return out
+        return run
+
+    for mod, name, key in targets:
+        setattr(mod, name, timed(getattr(mod, name), key))
+
+    def undo():
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return undo
+
+
+def phase_pipeline(rec, root, seed):
+    """The North star's command through the port: the production pipeline
+    in-process (no --device: the card is the default), every kernel of the
+    path counted; its summary, snapshot, consensus dicts and nnU-Net task
+    folders checked; then the training CLI in a subprocess."""
+    import contextlib
+    import io
+    import pickle
+    import tempfile
+
+    import torch
+
+    from deep_staple_torch import pipeline
+    from deep_staple_torch.ops import conv3d_dw
+    from deep_staple_torch.tools.nnunet_export import VARIANTS
+
+    out = rec["pipeline"] = {}
+    with tempfile.TemporaryDirectory(prefix="pipeline_") as tmp:
+        tmp = Path(tmp)
+        argv = [*PIPELINE_ARGS, *_fixture_args(root, tmp), "--run-name", "pipe",
+                "--nnunet-dir", str(tmp / "nnunet")]
+        timing, held = {}, {}
+        undo = _instrument_pipeline(timing, held)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        stdout = io.StringIO()
+        try:
+            t = _sync()
+            with contextlib.redirect_stdout(stdout):
+                summary = pipeline.main(argv)
+            out["total_s"] = _sync() - t
+        finally:
+            undo()
+        counts = read_counts()
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["grad_x_launches_by_stride"] = dict(conv3d_dw.depthwise_conv3d_grad_x.launches_by_stride)
+        _record_path(rec, "pipeline", counts)
+        out["launches"] = counts
+        out.update(timing)
+        lines = stdout.getvalue().splitlines()
+        res = held["train_s"][0]
+        n_params = sum(p.numel() for p in res["state"].model.parameters())
+        log(f"[pipeline] python -m deep_staple_torch.pipeline {' '.join(PIPELINE_ARGS)} on "
+            f"{TRAIN_DL_CASES} x {TRAIN_DL_ATLASES} at {TRAIN_DL_SIZE}: {out['total_s']:.1f} s "
+            f"(training {out['train_s']:.1f}, consensus {out['consensus_s']:.1f}, nnU-Net export "
+            f"{out['nnunet_s']:.1f}), peak memory {out['peak_mem_gb']:.2f} GB, {n_params:,} "
+            f"parameters; launches {counts}, grad_x by stride {out['grad_x_launches_by_stride']}")
+        for line in lines:
+            if line.startswith(("device:", "Fold", "### Log epoch", "pipeline summary", "  fold",
+                                "DP consensus", "STAPLE consensus")):
+                log(f"[pipeline]   {line}")
+
+        # Checks.
+        if f"device: {torch.device(DEV, 0) if DEV == 'cuda' else DEV}" not in lines[:3]:
+            raise AssertionError(f"pipeline: no 'device: {DEV}' line first: {lines[:3]}")
+        if n_params != MODEL_PARAMETERS:
+            raise AssertionError(f"pipeline: the model has {n_params} parameters")
+        missing = [k for k, n in out["grad_x_launches_by_stride"].items() if n == 0]
+        if missing:
+            raise AssertionError(f"pipeline launched no grad_x at stride {missing}")
+        path = tmp / "out" / "pipeline_summary.json"
+        saved = json.loads(path.read_text())
+        if saved != json.loads(json.dumps(summary)) or list(saved) != ["0"]:
+            raise AssertionError(f"pipeline summary {saved} against the returned {summary}")
+        fold = saved["0"]
+        tasks = [f"Task{555 + i}_consensus_{v}" for i, v in enumerate(VARIANTS)]
+        if set(fold) != {"snapshot", "consensus_dicts", "dices", "nnunet_tasks"} or \
+                fold["nnunet_tasks"] != tasks:
+            raise AssertionError(f"pipeline summary schema: {fold}")
+        dices = fold["dices"]
+        out["dices"] = dices
+        if set(dices) != {"dp_consensus", "staple_consensus"} or \
+                not all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in dices.values()):
+            raise AssertionError(f"pipeline Dice {dices}")
+        with open(fold["consensus_dicts"], "rb") as f:
+            cd = pickle.load(f)
+        n_fixed = len(cd)
+        if not Path(fold["snapshot"]).is_file() or n_fixed == 0:
+            raise AssertionError(f"pipeline: snapshot {fold['snapshot']}, {n_fixed} fixed images")
+        for task in tasks:
+            labels = list((tmp / "nnunet" / "fold0" / task / "labelsTr").glob("*.nii.gz"))
+            meta = json.loads((tmp / "nnunet" / "fold0" / task / "dataset.json").read_text())
+            if len(labels) != n_fixed or meta["numTraining"] != n_fixed:
+                raise AssertionError(f"pipeline: {task} holds {len(labels)} labels of {n_fixed}")
+        for epx in range(2):
+            if not (tmp / "models" / f"pipe_fold0_epx{epx}" / "state.pt").is_file():
+                raise AssertionError(f"pipeline: no checkpoint epx{epx}")
+        del res, held, cd
+        torch.cuda.empty_cache()
+
+        # The training CLI in a subprocess, with no --device.
+        from deep_staple_torch.data.synthetic import generate_synthetic_crossmoda
+
+        small = tmp / "small"
+        generate_synthetic_crossmoda(small / "ds", seed=seed, **MAIN_CLI_FIXTURE)
+        cmd = [sys.executable, "-m", "deep_staple_torch.main", *_fixture_args(small / "ds", small),
+               "--epochs", "1", "--batch-size", "4", "--num-val-images", "1", "--run-name", "cli"]
+        env = {**os.environ, "PYTHONPATH": str(REPO)}
+        t = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+        out["main_cli_s"] = time.perf_counter() - t
+        out["main_cli_rc"] = proc.returncode
+        first = proc.stdout.splitlines()[:3]
+        ckpt = small / "models" / "cli_fold0_epx0" / "state.pt"
+        log(f"[pipeline] python -m deep_staple_torch.main on {MAIN_CLI_FIXTURE['num_cases']} x "
+            f"{MAIN_CLI_FIXTURE['atlas_count']} at {MAIN_CLI_FIXTURE['size']}, 1 epoch: rc "
+            f"{proc.returncode} in {out['main_cli_s']:.1f} s; first lines {first}; checkpoint "
+            f"{'written' if ckpt.is_file() else 'missing'}")
+        if proc.returncode != 0 or not any(s.startswith(f"device: {DEV}") for s in first) or \
+                not ckpt.is_file():
+            raise AssertionError(f"main CLI: rc {proc.returncode}\n{proc.stdout[-2000:]}\n"
+                                 f"{proc.stderr[-3000:]}")
+
+
+# The DP-recovery oracle (`tests/test_torch_port_recovery.py`, after
+# `tests/test_disturbance_recovery.py:39-78`) on the card: 10 cases x 1
+# atlas at 16^3 (seed 3), 40% of the training labels shifted by AFFINE at
+# strength 3.0, 10 epochs at batch 4 with the augmentation on; the disturbed
+# rows' mean DP must lie below the clean rows' and at least a third of them
+# among the lowest DPs.
+ORACLE_CASES = (("reference", "batch"), ("fast-sep", "async"))
+
+
+def oracle_case(root, augment_order: str, bn_mode: str, device):
+    """One oracle case on `device` -> (mean DP of the disturbed rows, of the
+    clean rows, the ratio, the number of disturbed rows)."""
+    from deep_staple_torch.core.config import LabelDisturbanceMode, TrainConfig
+    from deep_staple_torch.data.crossmoda import (
+        CrossmodaHybridIdDataset, get_crossmoda_data_load_closure,
+    )
+    from deep_staple_torch.data.synthetic import generate_synthetic_crossmoda
+    from deep_staple_torch.train.driver import dp_in_target_pos_ratio, train_dl
+
+    generate_synthetic_crossmoda(root, num_cases=10, atlas_count=1, size=(16, 16, 16), seed=3)
+    closure = get_crossmoda_data_load_closure(
+        base_dir=str(root), domain="target", state="l4", use_additional_data=False,
+        size=(16, 16, 16), resample=True, normalize=True, crop_3d_w_dim_range=None,
+        ensure_labeled_pairs=True, modified_3d_label_override=None, debug=False,
+    )
+    dataset = CrossmodaHybridIdDataset(
+        closure, size=(16, 16, 16), resample=True, normalize=True, crop_3d_w_dim_range=None,
+        ensure_labeled_pairs=True, prevent_disturbance=False, pre_interpolation_factor=1.5,
+    )
+    config = TrainConfig(
+        epochs=10, batch_size=4, num_val_images=2, atlas_count=1, use_checkpointing=False,
+        ool_mode="fused", save_every=1000, save_labels=False, log_jsonl=False, lr_inst_param=0.2,
+        disturbance_mode=LabelDisturbanceMode.AFFINE, disturbance_strength=3.0,
+        disturbed_percentage=0.4, augment_order=augment_order, bn_mode=bn_mode,
+        output_dir=str(root / "out"), mdl_save_prefix=str(root / "models"), device=str(device),
+    )
+    res = train_dl("disturb-test", config, dataset, atlas_count=1, device=device)[0]
+    dp = res["state"].dp_params.cpu().numpy()
+    disturbed = dataset.disturbed_idxs
+    train = list(res["train_idxs"])
+    ratio = dp_in_target_pos_ratio(dp[res["train_idxs"]], [train.index(i) for i in disturbed], "min")
+    clean = [i for i in train if i not in disturbed]
+    return float(np.mean(dp[disturbed])), float(np.mean(dp[clean])), ratio, len(disturbed)
+
+
+def phase_oracle(rec):
+    import contextlib
+    import io
+    import tempfile
+
+    out = rec["oracle"] = {}
+    reset_counts()
+    failed = []
+    with tempfile.TemporaryDirectory(prefix="oracle_") as tmp:
+        for order, bn in ORACLE_CASES:
+            t = _sync()
+            with contextlib.redirect_stdout(io.StringIO()):
+                dis, cln, ratio, n = oracle_case(Path(tmp) / order, order, bn, DEV)
+            secs = _sync() - t
+            out[f"{order}/{bn}"] = {"dp_disturbed": dis, "dp_clean": cln, "ratio": ratio,
+                                    "n_disturbed": n, "s": secs}
+            ok = n >= 2 and dis < cln and ratio >= 1 / 3
+            log(f"[oracle] {order} + {bn} BN: mean DP disturbed {dis:.4f}, clean {cln:.4f}, ratio "
+                f"{ratio:.3f} ({n} disturbed; needs disturbed < clean and ratio >= 1/3) in "
+                f"{secs:.1f} s: {'ok' if ok else 'FAILED'}")
+            if not ok:
+                failed.append(order)
+    counts = read_counts()
+    _record_path(rec, "oracle", counts)
+    log(f"[oracle] launches {counts}")
+    if failed:
+        raise AssertionError(f"the DP-recovery oracle failed for {failed}")
 
 
 # ----------------------------------------------------------------- consensus
@@ -2096,8 +2361,17 @@ def main(argv=None):
     if "consensus" in phases:
         phase_consensus(rec, args.seed, *cons)
     del cons
-    if "train_dl" in phases:
-        phase_train_dl(rec, args.seed)
+    if {"train_dl", "pipeline"} & set(phases):
+        import tempfile
+
+        with tempfile.TemporaryDirectory(prefix="dl_fixture_") as tmp:
+            write_dl_fixture(Path(tmp), args.seed)
+            if "train_dl" in phases:
+                phase_train_dl(rec, args.seed, Path(tmp))
+            if "pipeline" in phases:
+                phase_pipeline(rec, Path(tmp), args.seed)
+    if "oracle" in phases:
+        phase_oracle(rec)
     if "times" in phases:
         phase_times(rec, args.seed)
     rec["seconds"] = time.perf_counter() - t0

@@ -160,3 +160,85 @@ class TrainConfig:
                 v = tuple(v)  # JSON stores the tuple as a list
             kw[k] = v
         return cls(**kw)
+
+
+def _smart_value(s: str):
+    """Parse a CLI string: ''/'none' -> None, 'a,b' -> tuple of ints,
+    otherwise int -> float -> str."""
+    if s is None or s.lower() in ("", "none", "null"):
+        return None
+    if "," in s:
+        return tuple(int(p) for p in s.split(",") if p != "")
+    for cast in (int, float):
+        try:
+            return cast(s)
+        except ValueError:
+            continue
+    return s
+
+
+def add_cli_args(parser, config: TrainConfig = TrainConfig()):
+    """Register every config field as a CLI flag
+    (`deep_staple_tpu/core/config.py:344-374`).
+
+    Typed from each field's default: bools accept true/false, ints/floats are
+    cast, None-able and tuple fields go through `_smart_value` (so
+    `--crop-3d-w-dim-range 45,95` and `--crop-3d-w-dim-range none` both work).
+    Every flag is registered under both spellings (`--batch-size` and
+    `--batch_size`). `--device` (default "cuda") is how a caller asks for
+    the CPU.
+    """
+    for f in dataclasses.fields(config):
+        names = ["--" + f.name.replace("_", "-")]
+        if "_" in f.name:
+            names.append("--" + f.name)  # underscore alias, same dest
+        default = getattr(config, f.name)
+        if isinstance(default, bool):
+            parser.add_argument(*names, type=lambda s: s.lower() in ("1", "true", "yes"), default=default)
+        elif isinstance(default, Enum):
+            parser.add_argument(*names, type=str, default=str(default))
+        elif isinstance(default, int):
+            parser.add_argument(*names, type=int, default=default)
+        elif isinstance(default, float):
+            parser.add_argument(*names, type=float, default=default)
+        elif isinstance(default, str):
+            parser.add_argument(*names, type=str, default=default)
+        else:  # Optional[...] and tuples
+            parser.add_argument(*names, type=_smart_value, default=default)
+    return parser
+
+
+def add_preset_arg(parser):
+    """`--preset {reference,production}` for training-style CLIs."""
+    parser.add_argument(
+        "--preset", choices=("reference", "production"), default="reference",
+        help="'reference' = reference-exact semantics (fp32, strict OOL, "
+        "reference augment order, remat); 'production' = "
+        "TrainConfig.tpu_production (fused OOL, fast-sep augment order, "
+        "bfloat16, no remat, async BN). fast-sep packs binary labels only: on "
+        "a non-binary dataset the driver picks fast-int8, which raises "
+        "NotImplementedError until slice 5a of the port. Explicit flags "
+        "override the preset either way.",
+    )
+    return parser
+
+
+def apply_preset(overrides: dict, preset: str, argv_tokens) -> dict:
+    """Merge a named preset into parsed CLI overrides, in place.
+
+    Explicit flags always win over the preset: a field counts as explicit when
+    its `--flag` token (either spelling, `--flag value` or `--flag=value`)
+    appears in argv. Only fields the preset actually changes from the
+    dataclass defaults are merged, so unrelated flags are never touched.
+    """
+    if preset == "production":
+        explicit = {
+            tok.split("=")[0].lstrip("-").replace("-", "_")
+            for tok in argv_tokens
+            if tok.startswith("--")
+        }
+        base = TrainConfig().to_dict()
+        for k, v in TrainConfig.tpu_production().to_dict().items():
+            if v != base[k] and k not in explicit:
+                overrides[k] = v
+    return overrides

@@ -116,6 +116,15 @@ def checkpoint_exists(path) -> bool:
     return (Path(path) / "state.pt").is_file()
 
 
+def jax_checkpoint_only(path) -> bool:
+    """True when `path` holds the JAX package's checkpoint (`state.msgpack`
+    or `state.orbax`, `deep_staple_tpu/train/checkpoint.py:116-117`) and no
+    `state.pt`."""
+    path = Path(path)
+    return not checkpoint_exists(path) and (
+        (path / "state.msgpack").is_file() or (path / "state.orbax").exists())
+
+
 def save_weights(path, model: torch.nn.Module, dp_params, config: TrainConfig | None = None):
     """Write the model's state_dict and the DP vector only (a serving checkpoint)."""
     _write(path, {"model": {k: _host(v) for k, v in model.state_dict().items()},

@@ -46,7 +46,9 @@ from ..ops.augment import AugmentDraws, AugmentParams, check_order, draw_augment
 from ..ops.dice import batch_dice_over_all, batch_dice_per_class, dice_from_int_labels
 from ..ops.resample import interpolate_sample
 from ..utils.logging import MetricWriter, get_global_idx, log_class_dices, log_data_parameter_stats
-from .checkpoint import check_backend, checkpoint_exists, restore_checkpoint, save_checkpoint
+from .checkpoint import (
+    check_backend, checkpoint_exists, jax_checkpoint_only, restore_checkpoint, save_checkpoint,
+)
 from .optim import exp_lr
 from .snapshot import export_train_label_snapshot
 from .state import create_state
@@ -183,21 +185,33 @@ def _to_device(host_batch: dict, dev: torch.device) -> dict:
     return out
 
 
+def _refuse_jax_checkpoint(path):
+    if jax_checkpoint_only(path):
+        raise NotImplementedError(
+            f"{path} holds a checkpoint of the JAX package (state.msgpack or state.orbax) and "
+            "no state.pt; reading JAX checkpoints comes with slice 4e of the port")
+
+
 def _resume_point(config: TrainConfig, run_name: str, fold_idx: int):
     """-> (first epoch, checkpoint path) of the JAX driver's resume rules
     (`driver.py:301-320`): an explicit checkpoint_epx re-runs that epoch from
-    its checkpoint; auto_resume continues after the newest one."""
+    its checkpoint; auto_resume continues after the newest one. A checkpoint
+    directory that holds only a JAX checkpoint raises."""
     epx_start = config.checkpoint_epx or 0
     ckpt_name = config.checkpoint_name or run_name
     prefix = Path(config.mdl_save_prefix)
     ckpt_path = prefix / f"{ckpt_name}_fold{fold_idx}_epx{epx_start}"
+    if config.checkpoint_epx is not None:
+        _refuse_jax_checkpoint(ckpt_path)
     if config.auto_resume and config.checkpoint_epx is None:
         pat = re.compile(rf"^{re.escape(ckpt_name)}_fold{fold_idx}_epx(\d+)$")
         newest = -1
         for d in prefix.glob(f"{ckpt_name}_fold{fold_idx}_epx*"):
             m = pat.match(d.name)
-            if m and checkpoint_exists(d):
-                newest = max(newest, int(m.group(1)))
+            if m:
+                _refuse_jax_checkpoint(d)
+                if checkpoint_exists(d):
+                    newest = max(newest, int(m.group(1)))
         if newest >= 0:
             ckpt_path = prefix / f"{ckpt_name}_fold{fold_idx}_epx{newest}"
             epx_start = newest + 1
@@ -238,6 +252,8 @@ def train_dl(run_name: str, config: TrainConfig, dataset, atlas_count=None,
     )
 
     for fold_idx in fold_range:
+        # Before the fold's data work, so that a JAX checkpoint raises first.
+        epx_start, ckpt_path = _resume_point(config, run_name, fold_idx)
         if config.debug:
             num_val_images, fold_atlas_count = 2, 1
         else:
@@ -294,7 +310,6 @@ def train_dl(run_name: str, config: TrainConfig, dataset, atlas_count=None,
             device=dev,
         )
 
-        epx_start, ckpt_path = _resume_point(config, run_name, fold_idx)
         epx = max(epx_start - 1, 0)  # snapshot dir name if the loop is empty
         if checkpoint_exists(ckpt_path):
             print(f"Restoring checkpoint from {ckpt_path}")

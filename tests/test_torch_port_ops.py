@@ -240,6 +240,8 @@ def test_port_imports_no_jax():
         "data/disturbance", "data/hybrid_dataset", "data/crossmoda", "train/prepare",
         "train/checkpoint", "train/infer", "train/snapshot", "train/driver")}
     assert driver_slice <= rel
+    cli_slice = {f"deep_staple_torch/{m}.py" for m in ("main", "pipeline", "tools/nnunet_export")}
+    assert cli_slice <= rel
     banned = ("jax", "jaxlib", "flax", "optax", "deep_staple_tpu")
     bad = [
         (str(f.relative_to(REPO)), mod)

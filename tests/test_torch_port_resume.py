@@ -201,3 +201,29 @@ def test_disturbance_follows_the_host_stream(tmp_path):
     for i in want:
         _id = dataset.get_3d_ids()[i]
         assert not np.array_equal(dataset.modified_label_data_3d[_id], dataset.label_data_3d[_id])
+
+
+@pytest.mark.parametrize("resume, jax_file", [
+    (dict(auto_resume=True), "state.msgpack"),
+    (dict(auto_resume=True), "state.orbax"),
+    (dict(checkpoint_epx=1), "state.msgpack"),
+])
+def test_jax_checkpoint_raises_before_training(tmp_path, monkeypatch, resume, jax_file):
+    """A checkpoint directory that holds only the JAX package's checkpoint
+    (`deep_staple_tpu/train/checkpoint.py:116-117`) raises, naming it,
+    before any data work or train step; it is never skipped silently."""
+    generate_synthetic_crossmoda(tmp_path / "ds", num_cases=3, atlas_count=2, size=(10, 10, 10))
+    ckpt = tmp_path / "models" / "jaxrun_fold0_epx1"
+    ckpt.mkdir(parents=True)
+    if jax_file == "state.orbax":
+        (ckpt / jax_file).mkdir()
+    else:
+        (ckpt / jax_file).write_bytes(b"")
+    cfg = TrainConfig(epochs=2, **_base(tmp_path, save_every=1), **resume)
+    dataset, ac = prepare_data(cfg)
+    for name in ("precompute_sample_metrics", "make_train_step", "restore_checkpoint"):
+        monkeypatch.setattr(pd, name, lambda *a, _n=name, **k: pytest.fail(f"{_n} ran"))
+    with pytest.raises(NotImplementedError, match="slice 4e") as err:
+        pd.train_dl("jaxrun", cfg, dataset, ac, device="cpu")
+    assert str(ckpt) in str(err.value)
+    assert not (tmp_path / "out").exists()
