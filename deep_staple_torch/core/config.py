@@ -216,8 +216,7 @@ def add_preset_arg(parser):
         "reference augment order, remat); 'production' = "
         "TrainConfig.tpu_production (fused OOL, fast-sep augment order, "
         "bfloat16, no remat, async BN). fast-sep packs binary labels only: on "
-        "a non-binary dataset the driver picks fast-int8, which raises "
-        "NotImplementedError until slice 5a of the port. Explicit flags "
+        "a non-binary dataset the driver picks fast-int8. Explicit flags "
         "override the preset either way.",
     )
     return parser

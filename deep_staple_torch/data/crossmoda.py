@@ -146,7 +146,8 @@ def get_crossmoda_data_load_closure(
 
         # Sequential reads through the port's NIfTI reader (float64, nibabel's
         # get_fdata semantics); the JAX loader's C++ batch reader
-        # (`native_io.try_native_load_batch`) comes with slice 5 of the port.
+        # (`native_io.try_native_load_batch`) comes with a later slice (the native
+        # bridges).
         def _ingest(items, store, is_label):
             for _3d_id, _file in items:
                 store[_3d_id] = _prep_volume(

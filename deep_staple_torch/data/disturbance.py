@@ -8,11 +8,13 @@ corrupted samples (`main_deep_staple.py:564-587`). Two modes:
     from `np.random.RandomState(seed)`: the same numbers and labels as the
     JAX package;
   * AFFINE: a strong random affine warp (:430-436), affine strength
-    0.09 * s and translation 0.18 * s, no b-spline. The draws come from a
-    CPU `torch.Generator` seeded by `seed` through the port's
-    `ops/augment.py` (`draw_augment`), the warp is `warp_nearest_zeros`; the
-    distribution is JAX's, the numbers are not. `draws=` takes the draws
-    instead (a test feeds JAX's).
+    0.09 * s and translation 0.18 * s, no b-spline, nearest with zero
+    padding; in 2D a 2D affine of the slice (`disturbance.py:35-53`). The
+    draws come from a CPU `torch.Generator` seeded by `seed` through the
+    port's `ops/augment.py` (`draw_augment`), the warp is
+    `warp_nearest_zeros` or, in 2D, `grid_sample_2d`; the distribution is
+    JAX's, the numbers are not. `draws=` takes the draws instead (a test
+    feeds JAX's).
 
 Per-index determinism comes from seeding with the dataset index (the
 reference's `torch_manual_seeded(idx)`, :407). Runs on the host.
@@ -53,16 +55,18 @@ def disturb_label(label: np.ndarray, mode, strength: float, seed: int, use_2d: b
         return np.roll(rolled, shifts, axis=(-3, -2, -1))
 
     if str(mode) == str(LabelDisturbanceMode.AFFINE):
-        if use_2d:
-            raise NotImplementedError(
-                "the 2D AFFINE disturbance comes with slice 5 of the port (the 2D path)")
         from ..ops.augment import draw_augment, make_augment_grid, warp_nearest_zeros
+        from ..ops.grid_sample import grid_sample_2d
 
         vol = torch.from_numpy(np.asarray(label)[None].astype(np.float32))
         if draws is None:
             gen = torch.Generator().manual_seed(int(seed))
             draws = draw_augment(gen, tuple(vol.shape), affine_params(strength), 1.0)
         grid = make_augment_grid(draws, tuple(vol.shape[1:]))
-        return warp_nearest_zeros(vol, grid)[0].numpy().astype(label.dtype)
+        if use_2d:
+            out = grid_sample_2d(vol[:, None], grid, "nearest", "zeros")[:, 0]
+        else:
+            out = warp_nearest_zeros(vol, grid)
+        return out[0].numpy().astype(label.dtype)
 
     raise ValueError(f"Disturbance mode {mode} is not implemented.")

@@ -1,11 +1,14 @@
-"""Carry weights between the Flax `MobileNetLRASPP3D` variables and the
-port's state_dict.
+"""Carry weights between the Flax variables of `MobileNetLRASPP3D` or
+`LRASPPMobileNetV3Large2D` and the port's state_dict.
 
-The port's modules carry the Flax names (`models/lraspp3d.py`), so a
-state_dict key is the Flax variable path joined by dots, e.g.
-`him.InvertedResidual3D_0.ConvBN_1.Conv_0.kernel`. Only layouts differ:
+The port's modules carry the Flax names (`models/lraspp3d.py`,
+`models/lraspp2d.py`), so a state_dict key is the Flax variable path joined
+by dots, e.g. `him.InvertedResidual3D_0.ConvBN_1.Conv_0.kernel` or
+`InvertedResidual2D_3.SqueezeExcite_0.Conv_1.bias`. Only layouts differ:
 
-  * conv kernels: Flax (kD, kH, kW, I/groups, O) <-> torch (O, I/groups, kD, kH, kW);
+  * conv kernels: Flax (kD, kH, kW, I/groups, O) <-> torch (O, I/groups, kD,
+    kH, kW), in 2D (kH, kW, I/groups, O) <-> (O, I/groups, kH, kW), the
+    2D model's depthwise convs included;
   * depthwise kernels (ConvBN_1 of every InvertedResidual3D): Flax
     (3, 3, 3, 1, C) <-> (27, C) float32, tap index dz*9 + dy*3 + dx, what
     the Hopper kernel takes;
@@ -54,7 +57,8 @@ def _leaf_to_torch(path: tuple, value) -> torch.Tensor:
         if _is_depthwise(path):
             a = a.reshape(27, a.shape[-1])
         else:
-            a = np.transpose(a, (4, 3, 0, 1, 2))
+            n = a.ndim - 2  # spatial axes
+            a = np.transpose(a, (n + 1, n) + tuple(range(n)))
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
@@ -64,7 +68,8 @@ def _leaf_to_flax(path: tuple, t: torch.Tensor) -> np.ndarray:
         if _is_depthwise(path):
             a = a.reshape(3, 3, 3, 1, a.shape[-1])
         else:
-            a = np.ascontiguousarray(np.transpose(a, (2, 3, 4, 1, 0)))
+            n = a.ndim - 2
+            a = np.ascontiguousarray(np.transpose(a, tuple(range(2, n + 2)) + (1, 0)))
     return a
 
 

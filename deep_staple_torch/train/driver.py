@@ -23,10 +23,13 @@ host they would cost it more than the step's launches (about 0.5 s a
 production step). `draws_on_host=True` takes those from the CPU generator
 too, so that a run on any device sees every number of a run on the CPU.
 
-Options of later slices raise NotImplementedError naming the slice: the
-device mesh, pipeline parallelism and multi-host runs (slice 6), the 2D and
-MIND paths and the augment orders `ops/augment.py` rejects (slice 5), and
-the figures (slice 4d).
+With `use_2d_normal_to` it trains the 2D model on slices along that axis
+(the training ids are the slices of the training volumes, the learning rate
+follows the cosine warm restarts, validation scores full 3D volumes) and
+exports a snapshot of slices; with `use_mind` the network sees MIND-SSC
+features. Options of later slices raise NotImplementedError naming the
+slice: the device mesh, pipeline parallelism and multi-host runs (slice 6)
+and the figures (slice 4d).
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ import torch
 from ..core.config import DataParamMode, TrainConfig
 from ..core.determinism import reset_determinism
 from ..core.device import resolve_device
-from ..models import MobileNetLRASPP3D
+from ..models import LRASPPMobileNetV3Large2D, MobileNetLRASPP3D
 from ..ops.augment import AugmentDraws, AugmentParams, check_order, draw_augment
 from ..ops.dice import batch_dice_over_all, batch_dice_per_class, dice_from_int_labels
 from ..ops.resample import interpolate_sample
@@ -49,7 +52,7 @@ from ..utils.logging import MetricWriter, get_global_idx, log_class_dices, log_d
 from .checkpoint import (
     check_backend, checkpoint_exists, jax_checkpoint_only, restore_checkpoint, save_checkpoint,
 )
-from .optim import exp_lr
+from .optim import cosine_warm_restarts_lr, exp_lr
 from .snapshot import export_train_label_snapshot
 from .state import create_state
 from .step import make_eval_step, make_train_step, resolve_augment_order
@@ -92,11 +95,17 @@ def spearman_corr(a, b):
 
 
 def make_model(config: TrainConfig, num_classes: int):
-    """-> (model, input channels). The 3D model only for now."""
-    if config.use_2d_normal_to is not None:
-        raise NotImplementedError("the 2D model comes with slice 5 of the port (side paths)")
+    """-> (model, input channels): the 2D LR-ASPP MobileNetV3 with
+    `use_2d_normal_to` (which has no `bn_mode`: it says so and uses exact
+    BatchNorm, `driver.py:75-89`), else the 3D model."""
     in_ch = 12 if config.use_mind else 1
     dtype = torch.bfloat16 if config.compute_dtype == "bfloat16" else None
+    if config.use_2d_normal_to is not None:
+        if config.bn_mode != "batch":
+            print(f"bn_mode {config.bn_mode!r} is a 3D-path lever; the 2D model "
+                  "uses exact BatchNorm")
+        return LRASPPMobileNetV3Large2D(num_classes=num_classes, dtype=dtype,
+                                        in_channels=in_ch), in_ch
     model = MobileNetLRASPP3D(
         num_classes=num_classes,
         use_checkpointing=config.use_checkpointing,
@@ -163,9 +172,6 @@ def check_supported(config: TrainConfig):
         and torch.distributed.get_world_size() > 1)
     if multi:
         raise NotImplementedError("multi-host training comes with slice 6 of the port (parallelism)")
-    if config.use_2d_normal_to is not None or config.use_mind:
-        raise NotImplementedError(
-            "the 2D and MIND train paths come with slice 5 of the port (side paths)")
     check_order(config.augment_order)
     if config.save_dp_figures or config.do_plot:
         raise NotImplementedError(
@@ -243,6 +249,7 @@ def train_dl(run_name: str, config: TrainConfig, dataset, atlas_count=None,
     )
 
     use_dp = config.data_param_mode == DataParamMode.INSTANCE_PARAMS
+    use_2d = config.use_2d_normal_to is not None
     num_classes = len(dataset.label_tags)
     results = {}
 
@@ -261,7 +268,15 @@ def train_dl(run_name: str, config: TrainConfig, dataset, atlas_count=None,
 
         all_len = dataset.__len__(use_2d_override=False)
         val_3d_idxs = list(range(0, min(num_val_images * fold_atlas_count, all_len), fold_atlas_count))
-        train_idxs = np.asarray(list(range(min(num_val_images * fold_atlas_count, all_len), all_len)))
+        train_3d_idxs = list(range(min(num_val_images * fold_atlas_count, all_len), all_len))
+        if use_2d:
+            # The slices of the training volumes (`driver.py:188-193`).
+            train_3d = set(train_3d_idxs)
+            train_2d_ids = [d["2d_id"] for d in dataset.get_id_dicts()
+                            if d["3d_dataset_idx"] in train_3d and d["2d_id"] in dataset.label_data_2d]
+            train_idxs = np.asarray(dataset.switch_2d_identifiers(train_2d_ids))
+        else:
+            train_idxs = np.asarray(train_3d_idxs)
         print(f"Fold {fold_idx}: {len(train_idxs)} train instances, {len(val_3d_idxs)} val images")
 
         # --- optional label disturbance (reference :564-587) ---
@@ -284,7 +299,7 @@ def train_dl(run_name: str, config: TrainConfig, dataset, atlas_count=None,
 
         # --- per-sample metric precompute (reference :626-656) ---
         wise_dice, gt_num, bn_count, class_weights, fixed_weighting = precompute_sample_metrics(
-            dataset, train_idxs, num_classes, False, device=dev
+            dataset, train_idxs, num_classes, use_2d, device=dev
         )
 
         # --- model + state ---
@@ -294,7 +309,7 @@ def train_dl(run_name: str, config: TrainConfig, dataset, atlas_count=None,
             from ..data.snapshot_io import load_snapshot
 
             snap = load_snapshot(config.fixed_weight_file)
-            ids = dataset.get_3d_ids()
+            ids = dataset.get_2d_ids() if use_2d else dataset.get_3d_ids()
             dp_override_values = np.zeros(len(dataset), np.float32)
             for _id, w in zip(snap["d_ids"], np.asarray(snap["data_parameters"]).reshape(-1)):
                 if _id in ids:
@@ -332,9 +347,9 @@ def train_dl(run_name: str, config: TrainConfig, dataset, atlas_count=None,
         eval_step = make_eval_step(model, config, num_classes)
         # Async-BN warmup: the first bn_warmup_epochs run the slab-BN model,
         # which shares every parameter and buffer with `model`
-        # (`driver.py:393-418`).
+        # (`driver.py:393-418`); the 2D model has no bn_mode.
         warmup_step, warmup_epochs = None, 0
-        if config.bn_mode == "async" and config.bn_warmup_epochs > 0:
+        if config.bn_mode == "async" and config.bn_warmup_epochs > 0 and not use_2d:
             warmup_epochs = config.bn_warmup_epochs
             warmup_step = make_train_step(
                 make_warmup_model(model, config, num_classes), config, class_weights,
@@ -380,7 +395,8 @@ def train_dl(run_name: str, config: TrainConfig, dataset, atlas_count=None,
                 batch = _to_device(host_batch, dev)
                 draws = AugmentDraws(*_to_device(draws._asdict(), dev).values())
 
-                lr = exp_lr(config.lr, sched_steps)
+                lr = (cosine_warm_restarts_lr(config.lr, sched_steps) if use_2d
+                      else exp_lr(config.lr, sched_steps))
                 step_fn = warmup_step if epx < warmup_epochs and warmup_step is not None else train_step
                 t0 = time.time()
                 state, metrics = step_fn(state, batch, lr, generator=dev_gen, draws=draws)

@@ -5,8 +5,12 @@ For every training instance: its DP value, disturb flag, id, dataset index,
 paths, clean label, modified label and a fresh prediction of the model;
 rows sorted ascending by DP value. Labels and predictions are stored at the
 x2.0 eval scale (the reference's eval-mode `__getitem__` interpolation,
-`HybridIdLoader.py:336`), which the consensus stage reads. The prediction
-runs on the model's device in eval mode (on the card: K2's forward).
+`HybridIdLoader.py:336`), which the consensus stage reads; a 2D dataset's
+rows are slices, scaled in 2D (`snapshot.py:36-56`). The prediction runs on
+the model's device in eval mode (on the card, the 3D model's: K2's forward)
+and sees the network's input features: with `use_mind` the MIND-SSC
+channels, which the JAX export leaves out (its `img2[..., None]` gives a
+12-channel model one channel, `snapshot.py:50`).
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import torch
 from ..data.snapshot_io import save_snapshot
 from ..ops.resample import interpolate_sample
 from .state import DeepStapleState
+from .step import _featurize
 
 
 def export_train_label_snapshot(
@@ -33,8 +38,6 @@ def export_train_label_snapshot(
     eval_scale_factor: float = 2.0,
 ):
     use_2d = dataset.use_2d()
-    if use_2d:
-        raise NotImplementedError("the 2D snapshot comes with slice 5 of the port (the 2D path)")
     device = next(model.parameters()).device
 
     def to_dev(a, dtype):
@@ -48,10 +51,11 @@ def export_train_label_snapshot(
         for i in train_idxs:
             s = dataset[int(i)]
             img2, lbl = interpolate_sample(to_dev(s["image"], torch.float32),
-                                           to_dev(s["label"], torch.int32), eval_scale_factor)
+                                           to_dev(s["label"], torch.int32), eval_scale_factor, use_2d)
             _, mod = interpolate_sample(None, to_dev(s["modified_label"], torch.int32),
-                                        eval_scale_factor)
-            pred = model(img2[..., None], train=False)["out"].argmax(dim=-1).to(torch.int32)
+                                        eval_scale_factor, use_2d)
+            x = _featurize(img2, config.use_mind, use_2d)
+            pred = model(x, train=False)["out"].argmax(dim=-1).to(torch.int32)
             rows.append(
                 (
                     float(dp_weights[int(i)]),

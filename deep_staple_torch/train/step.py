@@ -15,6 +15,11 @@ One `train_step` call does what the reference does per batch
        - not out-of-line: the DP loss backpropagates into the model too,
   4. SparseAdam on the DP rows of the batch (duplicates accumulate),
   5. the train Dice of the argmax against the clean augmented label.
+
+With `use_mind` the network sees the 12 MIND-SSC channels of the image
+(`_featurize`, `step.py:41-55`); with `use_2d_normal_to` the batch holds 2D
+slices for the 2D model, and the eval step slices full 3D volumes along that
+axis and restacks the prediction (`step.py:251-285`).
 """
 
 from __future__ import annotations
@@ -24,7 +29,9 @@ import torch
 from ..core.config import DataParamMode, TrainConfig
 from ..ops.augment import AugmentParams, augment_sample_pair, check_order, draw_augment
 from ..ops.dice import dice_from_int_labels
+from ..ops.mind import mindssc
 from ..ops.resample import interpolate_sample
+from ..ops.stacking import make_2d_stack_from_3d, make_3d_from_2d_stack
 from .losses import dp_loss_fn, weighted_cross_entropy
 from .optim import set_lr, sparse_adam_update
 from .state import DeepStapleState
@@ -39,6 +46,17 @@ def resolve_augment_order(order: str, num_classes: int) -> str:
     if order.endswith("-sep") and num_classes != 2:
         return order[: -len("-sep")] + "-int8"
     return order
+
+
+def _featurize(images, use_mind: bool, use_2d: bool):
+    """(B, *spatial) images -> (B, *spatial, C) channels-last network input:
+    the intensity, or its 12 MIND-SSC channels (reference
+    `main_deep_staple.py:691-698`); a 2D slice is a depth-1 volume to MIND."""
+    if not use_mind:
+        return images[..., None]
+    if use_2d:
+        return mindssc(images[:, None, None])[:, :, 0].movedim(1, -1)
+    return mindssc(images[:, None]).movedim(1, -1)
 
 
 def _swap_buffers(model, buffers):
@@ -68,9 +86,8 @@ def make_train_step(model, config: TrainConfig, class_weights, fixed_weighting,
     "dp_loss" (with data parameters), "dice" (B, num_classes), as tensors.
     """
     use_dp = config.data_param_mode == DataParamMode.INSTANCE_PARAMS
+    use_2d = config.use_2d_normal_to is not None
     num_classes = len(class_weights)
-    if config.use_2d_normal_to is not None or config.use_mind:
-        raise NotImplementedError("the 2D and MIND train paths come with slice 5 of the port")
     if config.ool_mode not in ("strict", "fused"):
         raise ValueError(f"ool_mode {config.ool_mode!r} (expected 'strict' or 'fused')")
     order = config.augment_order
@@ -107,9 +124,9 @@ def make_train_step(model, config: TrainConfig, class_weights, fixed_weighting,
             if draws is None:
                 draws = draw_augment(generator, img.shape, augment_params, pre_interpolation_factor)
             img, lbl, mod, _ = augment_sample_pair(img, lbl, mod, draws, augment_params,
-                                                   pre_interpolation_factor, order)
+                                                   pre_interpolation_factor, order, use_2d)
         idxs = batch["dataset_idx"].long()
-        x = img[..., None]
+        x = _featurize(img, config.use_mind, use_2d)
         params = [p for p in model.parameters() if p.requires_grad]
         metrics = {}
         dp_grads = None
@@ -169,23 +186,28 @@ def make_train_step(model, config: TrainConfig, class_weights, fixed_weighting,
 
 def make_eval_step(model, config: TrainConfig, num_classes: int, eval_scale_factor: float = 2.0):
     """Validation forward on full 3D volumes at the reference's x2.0 eval
-    scale (`HybridIdLoader.py:336`).
+    scale (`HybridIdLoader.py:336`). The 2D model sees the volume as a stack
+    of slices along `use_2d_normal_to`; its argmax is restacked and scored in
+    3D (reference :897-910).
 
     Returns `eval_step(batch) -> (pred, dice)`: `batch["image"]` (B, D, H, W)
     float32 and `batch["label"]` (B, D, H, W) int on the model's device; pred
     is the int32 argmax at the eval scale and dice (B, num_classes) float32
     against the label interpolated the same way.
     """
-    if config.use_2d_normal_to is not None:
-        raise NotImplementedError("the 2D eval path comes with a later slice of the port")
-    if config.use_mind:
-        raise NotImplementedError("MIND features come with a later slice of the port")
+    stack_dim = config.use_2d_normal_to
 
     def eval_step(batch):
         with torch.inference_mode():
             img, lbl = interpolate_sample(batch["image"], batch["label"], eval_scale_factor, False)
-            logits = model(img[..., None], train=False)["out"]
-            pred = logits.argmax(dim=-1).to(torch.int32)
+            if stack_dim is not None:
+                stack = make_2d_stack_from_3d(img[:, None], stack_dim)[:, 0]
+                logits = model(_featurize(stack, config.use_mind, True), train=False)["out"]
+                pred2d = logits.argmax(dim=-1).to(torch.int32)
+                pred = make_3d_from_2d_stack(pred2d[:, None], stack_dim, img.shape[0])[:, 0]
+            else:
+                logits = model(_featurize(img, config.use_mind, False), train=False)["out"]
+                pred = logits.argmax(dim=-1).to(torch.int32)
             b_dice = dice_from_int_labels(pred, lbl, num_classes)
         return pred, b_dice
 

@@ -179,8 +179,13 @@ def test_disturb_label_affine_own_draws():
     np.testing.assert_array_equal(a, b)
     assert a.dtype == lbl.dtype and set(np.unique(a)) <= {0, 1}
     assert not np.array_equal(a, c)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        pdist.disturb_label(lbl[0], LabelDisturbanceMode.AFFINE, 1.0, 7, use_2d=True)
+    # A 2D slice takes the 2D AFFINE branch (against JAX's draws:
+    # `test_torch_port_2d.py`), with the same properties.
+    a2 = pdist.disturb_label(lbl[5], LabelDisturbanceMode.AFFINE, 1.0, 7, use_2d=True)
+    np.testing.assert_array_equal(
+        a2, pdist.disturb_label(lbl[5], LabelDisturbanceMode.AFFINE, 1.0, 7, use_2d=True))
+    assert a2.shape == lbl[5].shape and a2.dtype == lbl.dtype and set(np.unique(a2)) <= {0, 1}
+    assert not np.array_equal(a2, lbl[5])
 
 
 @pytest.mark.parametrize("use_2d", [False, True])

@@ -159,8 +159,12 @@ def test_make_model_3d_only():
     model, in_ch = make_model(TrainConfig(compute_dtype="bfloat16", bn_mode="slab"), 2)
     assert in_ch == 1 and model.dtype == torch.bfloat16
     assert hasattr(model.him.InvertedResidual3D_0.ConvBN_0.BatchNorm_0, "count")
-    with pytest.raises(NotImplementedError):
-        make_model(TrainConfig(use_2d_normal_to="D"), 2)
+    # use_2d_normal_to builds the 2D model (`test_torch_port_2d.py`).
+    from deep_staple_torch.models import LRASPPMobileNetV3Large2D
+
+    model2d, in_ch = make_model(TrainConfig(use_2d_normal_to="D", compute_dtype="bfloat16"), 2)
+    assert isinstance(model2d, LRASPPMobileNetV3Large2D) and in_ch == 1
+    assert model2d.dtype == torch.bfloat16
 
 
 def test_eval_step_matches_jax(lraspp_variables):
@@ -187,5 +191,21 @@ def test_eval_step_matches_jax(lraspp_variables):
     assert pred.dtype == torch.int32 and tuple(pred.shape) == (2, *SPATIAL)
     np.testing.assert_array_equal(pred.numpy(), np.asarray(jpred))
     np.testing.assert_allclose(dice.numpy(), np.asarray(jdice), rtol=0, atol=1e-6)
-    with pytest.raises(NotImplementedError):
-        make_eval_step(model, TrainConfig(use_mind=True), num_classes)
+    # use_mind: the 12-channel model sees the MIND-SSC features of the
+    # interpolated image (against JAX: `test_torch_port_mind.py`).
+    from deep_staple_torch.models import init_weights
+    from deep_staple_torch.ops.mind import mindssc
+    from deep_staple_torch.ops.resample import interpolate_sample
+    from deep_staple_torch.train.driver import make_model
+
+    mind_model, in_ch = make_model(TrainConfig(use_mind=True, use_checkpointing=False), 2)
+    init_weights(mind_model, torch.Generator().manual_seed(2))
+    mind_model.eval()
+    pred, dice = make_eval_step(mind_model, TrainConfig(use_mind=True), num_classes)(
+        {"image": torch.from_numpy(img), "label": torch.from_numpy(lbl)}
+    )
+    img2, _ = interpolate_sample(torch.from_numpy(img), None, 2.0)
+    with torch.no_grad():
+        want = mind_model(mindssc(img2[:, None]).movedim(1, -1))["out"].argmax(dim=-1)
+    assert in_ch == 12 and tuple(dice.shape) == (2, num_classes)
+    np.testing.assert_array_equal(pred.numpy(), want.numpy())

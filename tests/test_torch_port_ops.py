@@ -242,6 +242,8 @@ def test_port_imports_no_jax():
     assert driver_slice <= rel
     cli_slice = {f"deep_staple_torch/{m}.py" for m in ("main", "pipeline", "tools/nnunet_export")}
     assert cli_slice <= rel
+    side_slice = {f"deep_staple_torch/{m}.py" for m in ("ops/mind", "ops/stacking", "models/lraspp2d")}
+    assert side_slice <= rel
     banned = ("jax", "jaxlib", "flax", "optax", "deep_staple_tpu")
     bad = [
         (str(f.relative_to(REPO)), mod)

@@ -133,9 +133,6 @@ def test_checkpoint_round_trip_and_backends(tmp_path):
     (dict(mesh_model_axis=2), "slice 6"),
     (dict(mesh_pipe_stages=2), "slice 6"),
     (dict(dist_num_processes=2), "slice 6"),
-    (dict(use_2d_normal_to="D"), "slice 5"),
-    (dict(use_mind=True), "slice 5"),
-    (dict(augment_order="fast-int8"), "slice 5"),
     (dict(save_dp_figures=True), "slice 4d"),
     (dict(do_plot=True), "slice 4d"),
     (dict(checkpoint_backend="orbax"), "state.pt"),
@@ -145,6 +142,17 @@ def test_unported_options_raise(tmp_path, kw, slice_name):
     with pytest.raises(NotImplementedError, match=slice_name):
         pd.train_dl("x", cfg, None, device="cpu")
     assert not (tmp_path / "out").exists()
+
+
+@pytest.mark.parametrize("kw", [
+    dict(use_2d_normal_to="D"),
+    dict(use_mind=True),
+    dict(augment_order="fast-int8"),
+])
+def test_side_path_options_pass_check_supported(kw):
+    """The 2D model, MIND features and every augment order are ported: the
+    options that raised before slice 5 pass `check_supported`."""
+    pd.check_supported(TrainConfig(**kw))
 
 
 def test_default_device_never_falls_back_to_cpu(tmp_path, monkeypatch):

@@ -119,5 +119,16 @@ def test_inference_fn_matches_snapshot_prediction(exports):
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), snap["train_predictions"][row])
     np.testing.assert_array_equal(inference_wrap(model, None, img2[0]).numpy(), got.numpy())
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        make_inference_fn(model, use_mind=True)
+    # use_mind: a 12-channel model on the volume's MIND-SSC features
+    # (against JAX: `test_torch_port_mind.py`).
+    from deep_staple_torch.models import init_weights
+    from deep_staple_torch.ops.mind import mindssc
+
+    mind_model, _ = make_model(TrainConfig(use_mind=True, use_checkpointing=False), 2)
+    init_weights(mind_model, torch.Generator().manual_seed(3))
+    mind_model.eval()
+    got = make_inference_fn(mind_model, use_mind=True)(img2[0].numpy())
+    with torch.no_grad():
+        want = mind_model(mindssc(img2[:, None]).movedim(1, -1))["out"].argmax(dim=-1)[0]
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
