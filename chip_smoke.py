@@ -5,7 +5,8 @@
 
     phases: device, build, kernels, train_kernels, consensus_kernels, serve,
             e2e, profile, train, train_e2e, train_profile, consensus,
-            train_dl, pipeline, side_paths, oracle, times (default: all)
+            train_dl, pipeline, side_paths, oracle, registration, times
+            (default: all)
 
 Run from the repository root. It builds every kernel of the port from the
 sources in the checkout (one nvcc per source, all at once), holds each
@@ -28,7 +29,9 @@ give it, and drives both main paths at full size:
     fixed images x 10 atlases, and `evaluate_consensus` on 4 x 30 in
     memory, with K4 (the fused EM pass) checked against its plain version
     at those shapes and at edge shapes; card against CPU on 2 x 10 atlases
-    at 64x64x25;
+    at 64x64x25; past 128 raters K4's chunked form at edge shapes, at one
+    3D eval case of 256 raters and at 30 atlases x 128 slices of a 2D
+    snapshot case (3,840 raters);
   * the driver: the synthetic fixture of 8 cases x 4 atlases at 128x128x50,
     `prepare_data`, `train_dl` in the production configuration (3 epochs
     of 3 steps at batch 8, validation, a checkpoint every epoch, the
@@ -42,11 +45,18 @@ give it, and drives both main paths at full size:
   * the side paths: `augment_sample_pair` in every augment order at the
     training shape, card against CPU and timed; `train_dl` to the snapshot
     and its consensus in the production preset on three classes (falling
-    back to 'fast-int8'), with MIND-SSC features, and with the 2D model;
-    the production pipeline on three classes with no --device;
+    back to 'fast-int8'), with MIND-SSC features, and with the 2D model
+    (2 atlases a case: 256 raters a case in the consensus, K4's chunked
+    form); the production pipeline on three classes with no --device;
   * the oracle: the three DP-recovery cases of
     `tests/test_torch_port_recovery.py` (10 epochs at 16^3, augmentation
-    on; the third on three classes) with their thresholds.
+    on; the third on three classes) with their thresholds;
+  * registration: `affine_register` on a 256x256x100 fixed volume and a
+    256x256x120 moving one made from it by a known affine, at the default
+    scales and iterations, held to `tests/test_register.py`'s bound and
+    timed; card against CPU at 64x64x25 (the first scale's loss and
+    gradient, the final map), `ssd_cost_volume` at its defaults on 12 MIND
+    channels and 1,024 keypoints, and `dilate_label_class`.
 
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after. It times each kernel beside its bound, its plain
@@ -77,7 +87,7 @@ REPO = Path(__file__).resolve().parent
 WORK = REPO / "build" / "chip_smoke"
 PHASES = ("device", "build", "kernels", "train_kernels", "consensus_kernels", "serve", "e2e",
           "profile", "train", "train_e2e", "train_profile", "consensus", "train_dl", "pipeline",
-          "side_paths", "oracle", "times")
+          "side_paths", "oracle", "registration", "times")
 
 # The depthwise conv's shapes at the serve CLI's defaults: size 128^3 with
 # crop (45, 95) gives 128x128x50, eval x2.0 gives 256x256x100 at the input,
@@ -157,10 +167,19 @@ CONS_SMALL = (2, 10, (64, 64, 25))
 # +/- 1, 7x9x5 and 1,040 (a multiple of 16: the 16-byte copies, a ragged
 # tail); then shapes where a block walks several tiles of its ring (ntiles >
 # nblk), aligned and not; then every R up to 32 (each form) at a ragged V.
+# Past 128 raters the chunked form (chunks of 128 rows, 4 voxels a thread,
+# 128-voxel M-step tiles, word loads where V % 4 == 0): R = 129 (a chunk of
+# one row), 130, 255, 256 (two full chunks), 1,000 and 3,840 (30 chunks)
+# against V = 1, 127, 129 (ragged tails), 1,040 and 6,400 (aligned) and
+# 6,401; and the two shapes it is timed at, one 3D eval case of 256 raters
+# and 3,840 raters over a 128x50 slice.
 EDGE_STAPLE = [(2, R, V) for R in (1, 3, 16, 17, 32, 33, 64, 128)
                for V in (1, 255, 257, 315, 1023, 1025, 1040)] + [
     (2, 3, 262_144), (2, 17, 140_000), (3, 30, 140_001), (2, 33, 70_001), (2, 128, 40_000)] + [
     (2, R, 2_053) for R in range(1, 33)]
+EDGE_STAPLE_CHUNKED = [(2, R, V) for R in (129, 130, 255, 256, 1000, 3840)
+                       for V in (1, 127, 129, 1040, 6400, 6401)]
+CHUNKED_TIMED = [(1, 256, 256 * 256 * 100), (1, 3840, 128 * 50)]
 # Operations of one K4 pass a voxel, besides 4 a rater (a multiply-add each
 # for t and wd): the sigmoid (exp, add, divide), the mask and the w sum.
 STAPLE_OPS_PER_VOXEL = 8
@@ -210,6 +229,7 @@ PATH_KERNELS = {
     "side_mind": ("depthwise_conv3d_fwd", "depthwise_conv3d_grad_x", "depthwise_conv3d_grad_w",
                   "sep_warp_pass", "staple_em_iter"),
     "side_2d": ("staple_em_iter",),
+    "registration": (),  # no kernel of the port: JAX computes it outside any Pallas kernel
     "side_pipeline": ("depthwise_conv3d_fwd", "depthwise_conv3d_grad_x", "depthwise_conv3d_grad_w",
                       "staple_em_iter"),
 }
@@ -280,6 +300,7 @@ def reset_counts():
     for fn in _wrappers().values():
         fn.launches = 0
     _wrappers()["depthwise_conv3d_grad_x"].launches_by_stride = {1: 0, 2: 0}
+    _wrappers()["staple_em_iter"].launches_chunked = 0
 
 
 def read_counts() -> dict:
@@ -289,6 +310,8 @@ def read_counts() -> dict:
 def _record_path(rec, path, counts):
     """Store a main path's launch counts; fail if one of its kernels never ran."""
     rec.setdefault("main_path_launches", {})[path] = counts
+    rec.setdefault("main_path_launches_chunked", {})[path] = \
+        _wrappers()["staple_em_iter"].launches_chunked
     missing = [k for k in PATH_KERNELS[path] if counts[k] == 0]
     if missing:
         raise AssertionError(f"the {path} path launched no {missing}: {counts}")
@@ -383,7 +406,8 @@ def phase_build(rec):
     log(f"[build] {len(built)} libraries in {rec['build_s']:.1f} s (nvcc in parallel)")
     rec["staple_sass"] = _sass_conversions(built["staple_em"][0])
     # K4's plan as the kernel computes it, against its mirror in staple_fused.
-    bad = [(C, R, V) for C in (1, 2, 4, 7) for R in (1, 10, 16, 17, 30, 32, 33, 64, 128)
+    bad = [(C, R, V) for C in (1, 2, 4, 7)
+           for R in (1, 10, 16, 17, 30, 32, 33, 64, 128, 129, 256, 1000, 3840)
            for V in (1, 257, 1025, 6_553_600) if staple_fused.kernel_tile_plan(C, R, V)
            != staple_fused.tile_plan(C, R, V)]
     log(f"[build] K4's plan: kernel and staple_fused.tile_plan agree over the grid: {not bad}")
@@ -1660,12 +1684,11 @@ SIDE_ORDERS = ("reference", "reference-bf16", "reference-int8", "reference-int6"
                "fast", "fast-bf16", "fast-int8", "fast-int6")
 # The 2D snapshot's consensus groups rows as JAX's does (fixed id = the
 # first four characters, `build_consensus_dicts`), so every slice of every
-# atlas of a fixed case is one rater: 128 slices along D x atlases. K4, like
-# the Pallas kernel it ports (`staple_pallas.py:88`), takes at most 128
-# raters, and raises beyond (measured on one H100: 256 raters at 2
-# atlases); JAX's consensus runs its XLA EM loop, which has no such limit.
-# Until K4 takes more raters (ROADMAP), the 2D run has one atlas a case.
-SIDE_2D_FIXTURE = dict(num_cases=3, atlas_count=1)
+# atlas of a fixed case is one rater: 128 slices along D x 2 atlases = 256
+# raters a case, which K4 takes in its chunked form (past 128 raters, where
+# the Pallas kernel it ports stops, `staple_pallas.py:88`); the run must
+# launch that form.
+SIDE_2D_FIXTURE = dict(num_cases=3, atlas_count=2)
 SIDE_EPOCHS = 2
 
 
@@ -1853,6 +1876,11 @@ def phase_side_paths(rec, seed, root):
         r = out["2d"] = _side_run(rec, "side_2d", cfg, *prepare_data(cfg))
         if r["prediction_shape"][1:] != [2 * n for n in TRAIN_DL_SIZE[1:]]:
             raise AssertionError(f"2D snapshot predictions {r['prediction_shape']}")
+        r["launches_chunked"] = rec["main_path_launches_chunked"]["side_2d"]
+        log(f"[side_paths] side_2d: K4's chunked form (256 raters a case) launched "
+            f"{r['launches_chunked']} kernels")
+        if r["launches_chunked"] == 0:
+            raise AssertionError("the 2D consensus did not run K4's chunked form")
         for name in ("three_class", "mind", "2d"):
             out[name].pop("printed")
 
@@ -2097,17 +2125,22 @@ def _staple_tols(d, coef, base, w_ref):
 
 def _staple_kernel_case(gen, C, R, V, d=None):
     """Decisions (random 0/1 at 30% unless given), and coef, base from
-    sensitivities in [0.8, 1) and specificities in [0.9, 1), prior 0.3."""
+    sensitivities in [0.8, 1) and specificities in [0.9, 1), prior 0.3.
+    Past 128 raters those would put t near -0.7 R, where every w is an exact
+    0 and the M-step's sums are trivially exact: there decisions at 50% and
+    sensitivities and specificities in [0.5, 0.52), so that t stays within
+    a few units of 0 (its mean cancels; its spread is about 0.04 sqrt(R))."""
     import torch
 
     from deep_staple_torch.consensus.staple import _coefs
 
+    density, p0, pw, q0, qw = (0.3, 0.8, 0.2, 0.9, 0.1) if R <= 128 else (0.5, 0.5, 0.02, 0.5, 0.02)
     if d is None:
         d = torch.empty((C, R, V), dtype=torch.uint8, device=DEV)
         for c in range(C):
-            d[c] = torch.rand((R, V), generator=gen, device=DEV) < 0.3
-    p = 0.8 + 0.2 * torch.rand((C, R), generator=gen, device=DEV)
-    q = 0.9 + 0.1 * torch.rand((C, R), generator=gen, device=DEV)
+            d[c] = torch.rand((R, V), generator=gen, device=DEV) < density
+    p = p0 + pw * torch.rand((C, R), generator=gen, device=DEV)
+    q = q0 + qw * torch.rand((C, R), generator=gen, device=DEV)
     prior = torch.full((C,), 0.3, device=DEV)
     coef, base = _coefs(p.clamp(max=0.99999), q.clamp(max=0.99999),
                         torch.log(prior) - torch.log1p(-prior))
@@ -2133,18 +2166,20 @@ def phase_consensus_kernels(rec, seed, labels):
     gen = torch.Generator(device=DEV).manual_seed(seed + 3)
     V = math.prod(CONS_SPATIAL)
     failures, worst = [], 0.0
-    shapes = [(CONS_CASES, R, V) for R in (CLI_ATLASES, CONS_ATLASES)] + EDGE_STAPLE
+    shapes = [(CONS_CASES, R, V) for R in (CLI_ATLASES, CONS_ATLASES)] + EDGE_STAPLE + \
+        EDGE_STAPLE_CHUNKED + CHUNKED_TIMED
     for C, R, Vs in shapes:
         d, coef, base = _staple_kernel_case(gen, C, R, Vs)
         active = torch.ones(C, dtype=torch.bool, device=DEV)
-        if Vs < V:
+        if Vs < V and C > 1:
             active[0] = False  # the kernel skips it; its rows are not compared
         wd, ws = staple_em_iter(d, coef, base, active)
-        if Vs == V:  # the consensus shapes: a second pass, bitwise equal to the first
-            wd2, ws2 = staple_em_iter(d, coef, base, active)
-            same = torch.equal(wd, wd2) and torch.equal(ws, ws2)
-            rec.setdefault("consensus_pass_repeat", {})[f"{C}x{R}"] = same
-            log(f"[consensus_kernels] staple_em_iter C={C} R={R:3d}: two passes bitwise equal {same}")
+        if Vs == V or R > 128:  # a second pass, bitwise equal to the first
+            wd2, ws2 = staple_em_iter(d, coef, base, active)  # inactive rows are undefined
+            same = torch.equal(wd[active], wd2[active]) and torch.equal(ws[active], ws2[active])
+            rec.setdefault("consensus_pass_repeat", {})[f"{C}x{R}x{Vs}"] = same
+            log(f"[consensus_kernels] staple_em_iter C={C} R={R:4d} V={Vs:8d}: two passes bitwise "
+                f"equal {same}")
             if not same:
                 failures.append(("repeat", C, R))
             del wd2, ws2
@@ -2161,7 +2196,7 @@ def phase_consensus_kernels(rec, seed, labels):
         worst = max(worst, err)
         rel = {k: float((x / y.abs().clamp(min=1e-30)).max()) for k, x, y in (
             ("kernel", kwd, xwd[a]), ("plain", (rwd[a].double() - xwd[a]).abs(), xwd[a]))}
-        log(f"[consensus_kernels] staple_em_iter C={C} R={R:3d} V={Vs:8d}: max |d wd| "
+        log(f"[consensus_kernels] staple_em_iter C={C} R={R:4d} V={Vs:8d}: max |d wd| "
             f"{float(dwd.max()):.3e} |d ws| {float(dws.max()):.3e} vs plain; wd vs its float64 "
             f"sum: kernel {rel['kernel']:.2e}, plain {rel['plain']:.2e} relative (tol 1e-5 or the "
             f"plain's, + the w errors carried); max |d w| {float(dw.max()):.3e} (the bound of t's "
@@ -2416,6 +2451,226 @@ def _em_iteration_split(d, iters):
     return out
 
 
+# ----------------------------------------------------------------- registration
+
+# The registration toolbox (`ops/registration.py`, `tools/register.py`) on
+# the card. `tools/register.py::estimate_pullback_lps`, the entry point
+# that calls `affine_register`, at the 3D eval scale: a fixed volume of
+# 256x256x100 (band-limited noise, `tests/test_register.py::_smooth_volume`)
+# and a moving one of 256x256x120 over the same field of view (W spacing
+# 100/120) made from it by a known pull-back: `tests/test_register.py:
+# 128-148`'s rotation of 0.08 rad about the first axis and shift of (1.0,
+# -1.5, 0.8), the rotation taken about the volume's centre. That test
+# rotates about the corner voxel, which at 256 voxels moves the far side
+# by 20; the JAX package's estimator, which the port follows step for step,
+# misses the test's bound on that construction from 64x64x25 up, on the CPU
+# as the port does. Default scales (4, 2, 1) and iterations (120, 80, 40),
+# timed (the path's seconds), then again with `lr` 0.01 (the estimator's
+# own argument; default 0.03). The test's bound: the moving volume pulled
+# back by the estimate within an interior RMS of 0.08 of the volume's std of
+# its pull-back by the known map. At this size the default step (0.03 in
+# normalized coordinates, about 4 voxels along 256) still swings at the last
+# scale's 40th iteration, so the default estimate is held only to halve the
+# identity's RMS (it registers), and the lr-0.01 one to the bound. Card
+# against CPU at 64x64x25 on the test's own (corner)
+# construction: the first scale's loss and gradient at the identity (the
+# same sums in another order: 1e-5 relative, 1e-4 of the gradient's
+# largest entry) and the final map (its pull-backs within 0.02 std of each
+# other, as the port and JAX are held in
+# `tests/test_torch_port_registration.py`). The SSD cost volume at its
+# defaults (displacement radius 16 in steps of 2, patch radius 3) on 12
+# MIND channels of the training base volume (128x128x50) and 1,024
+# keypoints; the CPU computes the first 128 (each keypoint's costs stand
+# alone) on the card's features, within 1e-4 of the largest cost (float32
+# convolutions summed in other orders). `dilate_label_class` in 3D and 2D,
+# labels equal.
+REG_FIXED, REG_MOVING, REG_SMALL = (256, 256, 100), (256, 256, 120), (64, 64, 25)
+REG_RMS_BOUND, REG_PAIR_BOUND = 0.08, 0.02
+REG_KEYPOINTS, REG_CPU_KEYPOINTS = 1024, 128
+
+
+def _smooth_volume(shape, seed, coarse=6):
+    """Band-limited noise: linear upsampling of coarse^3 uniform noise."""
+    import torch
+
+    from deep_staple_torch.ops.resample import resize_nd
+
+    base = np.random.RandomState(seed).rand(coarse, coarse, coarse).astype(np.float32)
+    return resize_nd(torch.from_numpy(base), tuple(shape), mode="linear").numpy()
+
+
+def _registration_pair(fixed_shape, moving_shape, seed, centred):
+    """-> fixed, moving, their world affines (voxel -> mm; the moving
+    volume's W spacing makes both cover one field of view) and the known
+    LPS pull-back P (fixed world -> moving world): a rotation of 0.08 rad
+    about the first axis, about the fixed volume's centre or its corner,
+    then a shift of (1.0, -1.5, 0.8)."""
+    from deep_staple_torch.tools.register import affine_sample_np
+
+    fixed = _smooth_volume(fixed_shape, seed)
+    c, s = math.cos(0.08), math.sin(0.08)
+    P = np.eye(4)
+    P[1:3, 1:3] = [[c, -s], [s, c]]
+    if centred:
+        ctr = (np.asarray(fixed_shape, np.float64) - 1) / 2
+        P[:3, 3] = ctr - P[:3, :3] @ ctr
+    P[:3, 3] += [1.0, -1.5, 0.8]
+    a_fix = np.eye(4)
+    a_mov = np.diag([1.0, 1.0, fixed_shape[2] / moving_shape[2], 1.0])
+    moving = affine_sample_np(fixed, np.linalg.inv(a_fix) @ np.linalg.inv(P) @ a_mov, moving_shape,
+                              mode="linear")
+    return fixed, moving, a_fix, a_mov, P
+
+
+def _pulled(moving, a_mov, shape, a_fix, M):
+    """The moving volume pulled back onto the fixed grid by M, 5 voxels in."""
+    from deep_staple_torch.tools.register import resample_to_reference
+
+    sl = (slice(5, -5),) * 3
+    return resample_to_reference(moving, a_mov, shape, a_fix, pullback_lps=M)[sl]
+
+
+def _rms(a, b) -> float:
+    return float(np.sqrt(np.mean((a - b) ** 2)))
+
+
+def phase_registration(rec, seed):
+    import torch
+
+    from deep_staple_torch.ops import dilate_label_class
+    from deep_staple_torch.ops import registration as reg
+    from deep_staple_torch.ops.mind import mindssc
+    from deep_staple_torch.tools.register import estimate_pullback_lps
+
+    out = rec["registration"] = {}
+    failures = []
+    t0 = time.perf_counter()
+
+    # estimate_pullback_lps at full size on the card.
+    fixed, moving, a_fix, a_mov, P = _registration_pair(REG_FIXED, REG_MOVING, seed, centred=True)
+    ref = _pulled(moving, a_mov, REG_FIXED, a_fix, P)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t = _sync()
+    est = estimate_pullback_lps(moving, a_mov, fixed, a_fix, device=DEV)
+    reg_s = _sync() - t
+    _record_path(rec, "registration", read_counts())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    t = _sync()
+    est_lr = estimate_pullback_lps(moving, a_mov, fixed, a_fix, lr=0.01, device=DEV)
+    lr_s = _sync() - t
+    scale = float(np.std(fixed))
+    ident = _rms(_pulled(moving, a_mov, REG_FIXED, a_fix, np.eye(4)), ref) / scale
+    rms = _rms(_pulled(moving, a_mov, REG_FIXED, a_fix, est), ref) / scale
+    rms_lr = _rms(_pulled(moving, a_mov, REG_FIXED, a_fix, est_lr), ref) / scale
+    ok = rms < ident / 2 and rms_lr < REG_RMS_BOUND
+    out["full"] = {"fixed": list(REG_FIXED), "moving": list(REG_MOVING), "seconds": reg_s,
+                   "seconds_lr_0.01": lr_s, "peak_mem_gb": peak, "identity_rms_over_std": ident,
+                   "rms_over_std": rms, "rms_over_std_lr_0.01": rms_lr, "bound": REG_RMS_BOUND,
+                   "pullback": est.tolist(), "pullback_lr_0.01": est_lr.tolist(),
+                   "max_abs_vs_known": [float(np.abs(M - P).max()) for M in (est, est_lr)], "ok": ok}
+    log(f"[registration] estimate_pullback_lps {REG_FIXED} <- {REG_MOVING} on the card, scales "
+        f"(4, 2, 1) x (120, 80, 40) iterations: {reg_s:.2f} s (lr 0.03), {lr_s:.2f} s (lr 0.01), "
+        f"peak {peak:.2f} GB; pull-back RMS against the known map, of the std: identity "
+        f"{ident:.4f}, lr 0.03 {rms:.4f} (held below half the identity's), lr 0.01 {rms_lr:.4f} "
+        f"(bound {REG_RMS_BOUND}); max |M - P| {out['full']['max_abs_vs_known'][0]:.4f} / "
+        f"{out['full']['max_abs_vs_known'][1]:.4f} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("full-size recovery")
+    del fixed, moving, ref
+
+    # Card against CPU at 64x64x25, the test's own (corner) construction.
+    small_moving = REG_SMALL[:2] + (REG_SMALL[2] + 5,)
+    fixed, moving, a_fix, a_mov, P = _registration_pair(REG_SMALL, small_moving, seed + 1,
+                                                        centred=False)
+    first = {}
+    for dev in (DEV, "cpu"):
+        f_s = reg.pyramid_level(reg.znorm(torch.from_numpy(fixed).to(dev)), 4)
+        m_s = reg.pyramid_level(reg.znorm(torch.from_numpy(moving).to(dev)), 4)
+        mat = torch.eye(3, device=dev, requires_grad=True)
+        trans = torch.zeros(3, device=dev, requires_grad=True)
+        loss = reg.affine_loss(mat, trans, f_s, m_s)
+        loss.backward()
+        first[dev] = (float(loss.detach()), mat.grad.cpu().numpy(), trans.grad.cpu().numpy())
+    (lc, gmc, gtc), (lp, gmp, gtp) = first[DEV], first["cpu"]
+    g_err = max(float(np.abs(gmc - gmp).max() / np.abs(gmp).max()),
+                float(np.abs(gtc - gtp).max() / np.abs(gtp).max()))
+    t = _sync()
+    Mc = estimate_pullback_lps(moving, a_mov, fixed, a_fix, device=DEV)
+    small_s = _sync() - t
+    t = time.perf_counter()
+    Mp = estimate_pullback_lps(moving, a_mov, fixed, a_fix, device="cpu")
+    cpu_s = time.perf_counter() - t
+    scale = float(np.std(fixed))
+    ref = _pulled(moving, a_mov, REG_SMALL, a_fix, P)
+    pc, pp = _pulled(moving, a_mov, REG_SMALL, a_fix, Mc), _pulled(moving, a_mov, REG_SMALL, a_fix, Mp)
+    pair = _rms(pc, pp) / scale
+    ok = abs(lc - lp) <= 1e-5 * abs(lp) and g_err <= 1e-4 and pair < REG_PAIR_BOUND
+    out["small"] = {"shape": list(REG_SMALL), "loss": [lc, lp], "grad_rel_err": g_err,
+                    "pair_rms_over_std": pair, "matrix_max_abs": float(np.abs(Mc - Mp).max()),
+                    "rms_over_std_vs_known": [_rms(pc, ref) / scale, _rms(pp, ref) / scale],
+                    "card_s": small_s, "cpu_s": cpu_s, "ok": ok}
+    log(f"[registration] card vs CPU at {REG_SMALL}: first-scale loss {lc:.7f} / {lp:.7f}, gradient "
+        f"{g_err:.2e} of its largest entry (tol 1e-5 / 1e-4); final maps {pair:.4f} std apart in "
+        f"their pull-backs (tol {REG_PAIR_BOUND}), max |dM| {out['small']['matrix_max_abs']:.2e}; "
+        f"against the known (corner) map {out['small']['rms_over_std_vs_known'][0]:.4f} / "
+        f"{out['small']['rms_over_std_vs_known'][1]:.4f} std; card {small_s:.2f} s, CPU "
+        f"{cpu_s:.2f} s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("card vs CPU")
+
+    # The SSD cost volume at its defaults on MIND features.
+    rng = np.random.RandomState(seed + 2)
+    base = TRAIN_BASE[1:]
+    vol = torch.from_numpy(_smooth_volume(base, seed + 3, coarse=12)).to(DEV)[None, None]
+    feat_f = mindssc(vol)
+    feat_m = mindssc(torch.roll(vol, (2, -1, 1), dims=(2, 3, 4)))
+    kw = np.stack([rng.randint(8, n - 8, REG_KEYPOINTS) for n in base], -1).astype(np.float32)
+    kpts = reg.kpts_pt(torch.from_numpy(kw)[None].to(DEV), base, align_corners=True)
+    cost = reg.ssd_cost_volume(kpts, feat_f, feat_m, base)
+    ssd_ms = timed_ms(lambda: reg.ssd_cost_volume(kpts, feat_f, feat_m, base), reps=3, warmup=1)
+    n = REG_CPU_KEYPOINTS
+    t = time.perf_counter()
+    cpu_cost = reg.ssd_cost_volume(kpts[:, :n].cpu(), feat_f.cpu(), feat_m.cpu(), base)
+    ssd_cpu_s = time.perf_counter() - t
+    mine = cost[:, :n].cpu()
+    err = float((mine - cpu_cost).abs().max() / cpu_cost.abs().max())
+    argmin_same = float((mine.reshape(n, -1).argmin(1) == cpu_cost.reshape(n, -1).argmin(1))
+                        .float().mean())
+    ok = tuple(cost.shape) == (1, REG_KEYPOINTS, 33, 33, 33) and err <= 1e-4 and \
+        bool(torch.isfinite(cost).all())
+    out["ssd"] = {"shape": list(cost.shape), "channels": int(feat_f.shape[1]), "ms": ssd_ms,
+                  "cpu_s_first_keypoints": ssd_cpu_s, "max_rel_err": err,
+                  "argmin_agreement": argmin_same, "ok": ok}
+    log(f"[registration] ssd_cost_volume {REG_KEYPOINTS} keypoints x {int(feat_f.shape[1])} MIND "
+        f"channels at {base}, window 33^3: {ssd_ms:.1f} ms on the card; the first {n} against the "
+        f"CPU ({ssd_cpu_s:.1f} s): max |d| {err:.2e} of the largest cost (tol 1e-4), argmin equal "
+        f"for {argmin_same:.4f} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("ssd_cost_volume")
+    del vol, feat_f, feat_m, cost, cpu_cost, mine
+    torch.cuda.empty_cache()
+
+    # dilate_label_class, 3D and 2D, labels equal.
+    lab = (rng.rand(*TRAIN_BASE) < 0.002).astype(np.int32)
+    rows = []
+    for use_2d, labels in ((False, lab), (True, lab.reshape(-1, *TRAIN_BASE[2:]))):
+        card_in = torch.from_numpy(labels).to(DEV)
+        got = dilate_label_class(card_in, 1, 1, use_2d)
+        ms = timed_ms(lambda: dilate_label_class(card_in, 1, 1, use_2d), reps=5)
+        same = torch.equal(got.cpu(), dilate_label_class(torch.from_numpy(labels), 1, 1, use_2d))
+        rows.append({"use_2d": use_2d, "shape": list(labels.shape), "ms": ms, "equal": same})
+        log(f"[registration] dilate_label_class {'2D' if use_2d else '3D'} {labels.shape}: "
+            f"{ms:.3f} ms on the card; card vs CPU labels {'equal' if same else 'DIFFER'}")
+        if not same:
+            failures.append(f"dilate_label_class use_2d={use_2d}")
+    out["dilate"] = rows
+    out["s"] = time.perf_counter() - t0
+    log(f"[registration] {out['s']:.1f} s in all")
+    if failures:
+        raise AssertionError(f"registration: {failures}")
+
+
 # ----------------------------------------------------------------- times
 
 def _time_row(kernel_fn, plain_fn, library_fn, nbytes, ops, reps=10):
@@ -2514,37 +2769,38 @@ def _staple_times(gen):
     10 and 30 atlases at 256x256x100, beside its plain version and the
     library's: w = sigmoid(base + coef @ Df), wd = Df @ w, ws = sum w with
     cuBLAS batched products on a float32 copy Df of the decisions (made
-    outside the timing; the port never makes it)."""
+    outside the timing; the port never makes it). Then its chunked form
+    past 128 raters (`CHUNKED_TIMED`), the same way."""
     import torch
 
     from deep_staple_torch.consensus.staple_fused import staple_em_iter, staple_em_iter_plain
 
     V = math.prod(CONS_SPATIAL)
-    rows = {"consensus": {"float32": []}, "shapes": []}
-    for C in (CONS_CASES, 1):
-        for R in (CLI_ATLASES, CONS_ATLASES):
-            d, coef, base = _staple_kernel_case(gen, C, R, V)
-            active = torch.ones(C, dtype=torch.bool, device=DEV)
-            df = d.float()
+    rows = {"consensus": {"float32": []}, "shapes": [], "chunked": []}
+    shapes = [(C, R, V) for C in (CONS_CASES, 1) for R in (CLI_ATLASES, CONS_ATLASES)]
+    for C, R, V in shapes + CHUNKED_TIMED:
+        d, coef, base = _staple_kernel_case(gen, C, R, V)
+        active = torch.ones(C, dtype=torch.bool, device=DEV)
+        df = d.float()
 
-            def library():
-                w = torch.sigmoid(base[:, None] + torch.bmm(coef[:, None, :], df)[:, 0])
-                return torch.bmm(df, w[:, :, None]), w.sum(dim=1)
+        def library():
+            w = torch.sigmoid(base[:, None] + torch.bmm(coef[:, None, :], df)[:, 0])
+            return torch.bmm(df, w[:, :, None]), w.sum(dim=1)
 
-            row = {"shape": [C, R, V], **_time_row(
-                lambda: staple_em_iter(d, coef, base, active),
-                lambda: staple_em_iter_plain(d, coef, base), library,
-                C * R * V + 4 * C * (2 * R + 1) + C, C * V * (4 * R + STAPLE_OPS_PER_VOXEL))}
-            row["device_ms"] = graph_ms(lambda: staple_em_iter(d, coef, base, active))
-            rows["shapes"].append(row)
-            if C == CONS_CASES and R == CONS_ATLASES:
-                rows["consensus"]["float32"].append(row)
-            log(f"[times] {'staple_em_iter':24s} {'float32':8s} {str((C, R, V)):22s}    "
-                f"kernel {row['ms']:8.3f} ms bound {row['bound_ms']:7.3f} ms ({row['bound_by']}) "
-                f"plain {row['plain_ms']:8.3f} ms library {row['library_ms']:8.3f} ms; device time "
-                f"{row['device_ms']:.4f} ms")
-            del d, coef, base, df
-            torch.cuda.empty_cache()
+        row = {"shape": [C, R, V], **_time_row(
+            lambda: staple_em_iter(d, coef, base, active),
+            lambda: staple_em_iter_plain(d, coef, base), library,
+            C * R * V + 4 * C * (2 * R + 1) + C, C * V * (4 * R + STAPLE_OPS_PER_VOXEL))}
+        row["device_ms"] = graph_ms(lambda: staple_em_iter(d, coef, base, active))
+        rows["chunked" if R > 128 else "shapes"].append(row)
+        if C == CONS_CASES and R == CONS_ATLASES:
+            rows["consensus"]["float32"].append(row)
+        log(f"[times] {'staple_em_iter':24s} {'float32':8s} {str((C, R, V)):22s}    "
+            f"kernel {row['ms']:8.3f} ms bound {row['bound_ms']:7.3f} ms ({row['bound_by']}) "
+            f"plain {row['plain_ms']:8.3f} ms library {row['library_ms']:8.3f} ms; device time "
+            f"{row['device_ms']:.4f} ms")
+        del d, coef, base, df
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -2592,6 +2848,10 @@ def summary_line(rec):
         }
         if name == "staple_em_iter":
             entry["per_shape"] = rows.get("shapes", [])
+            # Past 128 raters: the chunked form, its passes timed apart and
+            # its kernels counted apart on every path.
+            entry["chunked"] = rows.get("chunked", [])
+            entry["launches_chunked_by_path"] = rec.get("main_path_launches_chunked", {})
             entry["device_ms"] = sum(r["device_ms"] for r in rows.get("consensus", {}).get("float32", []))
         if name == "sep_warp_pass":
             entry["device_ms"] = sum(r["device_ms"] for r in rows.get("train", {}).get("float32", []))
@@ -2683,6 +2943,8 @@ def main(argv=None):
                 phase_side_paths(rec, args.seed, Path(tmp))
     if "oracle" in phases:
         phase_oracle(rec)
+    if "registration" in phases:
+        phase_registration(rec, args.seed)
     if "times" in phases:
         phase_times(rec, args.seed)
     rec["seconds"] = time.perf_counter() - t0

@@ -17,7 +17,15 @@ stores bfloat16).
     atomics), so a run repeats bit for bit.
   * `staple_posterior` launches the same kernel in its E-only form and
     writes w (C, V); `staple_posterior_plain` is its plain version.
-  * `staple_em_iter.launches` counts the launches of both.
+  * Any number of raters: up to 128 (`CHUNK`) a pass is one kernel; above,
+    the chunked form sums the logit over chunks of 128 raters into a
+    (C, chunks, V) float32 scratch, takes the sigmoid into a (C, V) one and
+    then runs the M-step, three kernels (two for the posterior), with
+    shared memory of a fixed size and sums in a fixed order. JAX's default
+    consensus (`deep_staple_tpu/consensus/staple.py:51`) has no limit; its
+    Pallas kernel stops at 128 (`staple_pallas.py:88`).
+  * `staple_em_iter.launches` counts the kernels both wrappers launch;
+    `.launches_chunked` those of the chunked form alone.
   * The wrappers size their scratch by the kernel's own plan
     (`kernel_tile_plan`, from `staple_tile_plan` in the source). `tile_plan`
     mirrors it in Python, a function of (C, R, V) alone, so that the CPU
@@ -35,10 +43,12 @@ import torch
 
 from ..ops import cuda_build
 
-MAX_RATERS = 128
+CHUNK = 128  # raters of a single-pass form at most, the rows of a chunk above (`kChunk`)
 THREADS = 256  # a block (`kThreads`)
 SMS = 132  # an H100 SXM's SMs: the blocks a case make one wave of them (`kSMs`)
-STATIC_SMEM = 4 * MAX_RATERS + 4 * 8 * (MAX_RATERS + 1) + 16  # s_coef, s_red, s_last
+STATIC_SMEM = 4 * CHUNK + 4 * 8 * (CHUNK + 1) + 16  # s_coef, s_red, s_last
+CHUNK_TILE = 128  # voxels of the chunked form's M-step tile (`kChunkTile`)
+CHUNK_BLOCKS_PER_SM = 4  # its planned residency (`kChunkBlocksPerSm`)
 
 
 class StapleTile(NamedTuple):
@@ -51,26 +61,34 @@ class StapleTile(NamedTuple):
     ntiles: int  # tiles a case
     nblk: int  # blocks a case; block b takes the tiles b, b + nblk, ...
     smem: int  # dynamic shared bytes a block
+    chunks: int  # rater chunks: 1 for a single-pass form; above 128 raters the chunked form's
 
 
 def tile_plan(C: int, R: int, V: int) -> StapleTile:
-    """K4's tiling of (C, R, V) decisions, as the kernel computes it."""
+    """K4's tiling of (C, R, V) decisions, as the kernel computes it. Above
+    `CHUNK` raters: the chunked form's M-step (tiles of `CHUNK_TILE` voxels,
+    nblk blocks a case and chunk, no ring and no dynamic shared memory)."""
+    if R > CHUNK:
+        chunks = -(-R // CHUNK)
+        ntiles = -(-V // CHUNK_TILE)
+        nblk = min(ntiles, -(-(SMS * CHUNK_BLOCKS_PER_SM) // (C * chunks)))
+        return StapleTile(0, CHUNK_TILE, 0, CHUNK_BLOCKS_PER_SM, ntiles, nblk, 0, chunks)
     rows = R + (R & 1) if R <= 32 else 0
     tile = 1024 if rows else 256
     stages, per_sm = (2, 1) if rows == 0 else (4, 2) if rows <= 16 else (2, 3)
     ntiles = -(-V // tile)
     nblk = min(ntiles, -(-(SMS * per_sm) // C))
     smem = stages * rows * tile if rows else stages * R * tile + (R + 1) * THREADS * 4
-    return StapleTile(rows, tile, stages, per_sm, ntiles, nblk, smem)
+    return StapleTile(rows, tile, stages, per_sm, ntiles, nblk, smem, 1)
 
 
 def load_library():
     lib = cuda_build.load("staple_em")
     if not hasattr(lib, "error_string"):
         vp, ll = ctypes.c_void_p, ctypes.c_longlong
-        lib.staple_em_iter.argtypes = [vp, vp, vp, vp, vp, vp, vp, ll, ll, ll, ll, vp]
+        lib.staple_em_iter.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, ll, ll, ll, ll, vp]
         lib.staple_em_iter.restype = ctypes.c_int
-        lib.staple_posterior.argtypes = [vp, vp, vp, vp, ll, ll, ll, ll, vp]
+        lib.staple_posterior.argtypes = [vp, vp, vp, vp, vp, ll, ll, ll, ll, vp]
         lib.staple_posterior.restype = ctypes.c_int
         lib.staple_tile_plan.argtypes = [ll, ll, ll, ctypes.POINTER(ll)]
         lib.staple_tile_plan.restype = None
@@ -97,8 +115,6 @@ def _on_cuda(d, coef, base) -> bool:
     if d.dim() != 3 or d.dtype != torch.uint8:
         raise ValueError(f"d must be (C, R, V) uint8, got {d.dtype} {tuple(d.shape)}")
     C, R, V = d.shape
-    if R > MAX_RATERS:
-        raise ValueError(f"at most {MAX_RATERS} raters, got {R}")
     if tuple(coef.shape) != (C, R) or tuple(base.shape) != (C,) or \
             coef.dtype != torch.float32 or base.dtype != torch.float32:
         raise ValueError(f"coef must be float32 ({C}, {R}) and base float32 ({C},), got "
@@ -121,9 +137,24 @@ def _on_cuda(d, coef, base) -> bool:
 @functools.lru_cache(maxsize=None)
 def kernel_tile_plan(C: int, R: int, V: int) -> StapleTile:
     """The plan as the built kernel computes it (needs the library)."""
-    out = (ctypes.c_longlong * 7)()
+    out = (ctypes.c_longlong * 8)()
     load_library().staple_tile_plan(C, R, V, out)
     return StapleTile(*(int(x) for x in out))
+
+
+def _count(plan: StapleTile, posterior: bool) -> None:
+    """Count the kernels of one call: 1 for a single-pass form; the chunked
+    form's logit and sigmoid kernels, and for a pass its M-step."""
+    if plan.chunks == 1:
+        staple_em_iter.launches += 1
+    else:
+        n = 2 + (not posterior)
+        staple_em_iter.launches += n
+        staple_em_iter.launches_chunked += n
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 _tickets: dict = {}
@@ -152,17 +183,23 @@ def staple_em_iter(d, coef, base, active):
             active.device != d.device or not active.is_contiguous():
         raise ValueError(f"active must be contiguous bool ({C},) on {d.device}, got "
                          f"{active.dtype} {tuple(active.shape)} on {active.device}")
-    nblk = kernel_tile_plan(C, R, V).nblk
+    plan = kernel_tile_plan(C, R, V)
+    nblk = plan.nblk
     partial = torch.empty((C, R + 1, nblk), dtype=torch.float32, device=d.device)
     sums = torch.empty((C, R + 1), dtype=torch.float32, device=d.device)
+    tpart = wbuf = None
+    if plan.chunks > 1:
+        tpart = torch.empty((C, plan.chunks, V), dtype=torch.float32, device=d.device)
+        wbuf = torch.empty((C, V), dtype=torch.float32, device=d.device)
     stream = torch.cuda.current_stream(d.device)
     tickets = _zeroed_tickets(C, d.device, stream)
     lib = load_library()
     err = lib.staple_em_iter(d.data_ptr(), coef.data_ptr(), base.data_ptr(),
                              active.data_ptr(), partial.data_ptr(), tickets.data_ptr(),
-                             sums.data_ptr(), C, R, V, nblk, stream.cuda_stream)
+                             sums.data_ptr(), _ptr(tpart), _ptr(wbuf), C, R, V, nblk,
+                             stream.cuda_stream)
     cuda_build.check(lib, err, "staple_em_iter")
-    staple_em_iter.launches += 1
+    _count(plan, posterior=False)
     return sums[:, :R], sums[:, R]
 
 
@@ -173,14 +210,19 @@ def staple_posterior(d, coef, base):
     if not _on_cuda(d, coef, base):
         return staple_posterior_plain(d, coef, base)
     C, R, V = d.shape
-    nblk = kernel_tile_plan(C, R, V).nblk
+    plan = kernel_tile_plan(C, R, V)
     w = torch.empty((C, V), dtype=torch.float32, device=d.device)
+    tpart = None
+    if plan.chunks > 1:
+        tpart = torch.empty((C, plan.chunks, V), dtype=torch.float32, device=d.device)
     lib = load_library()
     err = lib.staple_posterior(d.data_ptr(), coef.data_ptr(), base.data_ptr(), w.data_ptr(),
-                               C, R, V, nblk, torch.cuda.current_stream(d.device).cuda_stream)
+                               _ptr(tpart), C, R, V, plan.nblk,
+                               torch.cuda.current_stream(d.device).cuda_stream)
     cuda_build.check(lib, err, "staple_posterior")
-    staple_em_iter.launches += 1
+    _count(plan, posterior=True)
     return w
 
 
 staple_em_iter.launches = 0
+staple_em_iter.launches_chunked = 0

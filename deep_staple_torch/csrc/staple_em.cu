@@ -57,6 +57,26 @@
 // sums are left as they were. The E-only form writes w (C, V) for the
 // posterior from the final sensitivities and specificities.
 //
+// Above 128 raters (kChunk) the single-pass forms would need shared memory
+// that grows with R (the R > 32 form keeps R + 1 sums a thread there), so a
+// chunked form takes over; the Pallas original stops at 128. Its three
+// kernels, each with shared memory of a fixed size:
+//   * staple_logit_chunk_kernel: block (x, k, c) sums coef_r d_rj over chunk
+//     k's rows (at most 128, in order) for 1,024 voxels, 4 a thread, into a
+//     (C, chunks, V) float32 scratch;
+//   * staple_sigmoid_chunk_kernel: w_j = sigmoid(base + the chunks' sums in
+//     chunk order), into a (C, V) scratch, or into w for the E-only form;
+//   * staple_mstep_chunk_kernel: block (b, k, c) walks the 128-voxel tiles
+//     b, b + nblk, ...; each warp owns 16 of chunk k's rows (a lane 4
+//     voxels of each, one 32-bit load a row) and the block writes a partial
+//     of each row; the last block of a case (an integer ticket over its
+//     nblk x chunks blocks) sums the partials in block order: a warp a row
+//     as above, or a thread a row where nblk < 32 (at R in the thousands
+//     a warp a row leaves that one block latency-bound, row after row).
+// The sums keep a fixed order, so a pass repeats bit for bit. It reads the
+// decisions twice (the E-step and the M-step), where the single-pass forms
+// read them once: simple first, not yet made fast.
+//
 // Plain C interface, loaded with ctypes; every size and offset is 64-bit
 // (C * R * V reaches 786 M at 4 x 30 x 256 * 256 * 100). Each function
 // launches on the given stream, does not synchronise, and returns
@@ -70,8 +90,12 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxR = 128;
+constexpr int kChunk = 128;  // the most raters of a single-pass form; the rows of a chunk above
 constexpr int kSMs = 132;  // of an H100 SXM: the plan is a function of the shape, not of the card
+// The chunked form (R > kChunk): a lane takes 4 voxels, a warp 16 rows of a chunk.
+constexpr int kChunkTile = 128;          // voxels of an M-step tile: 32 lanes x 4
+constexpr int kChunkBlocksPerSm = 4;     // the M-step's planned residency
+constexpr int kRowsPerWarp = kChunk / kWarps;
 
 // The tiling of one form of the kernel, chosen by R: `rows` rows of
 // decisions a thread holds in registers, R rounded up to even (an odd R's
@@ -92,14 +116,25 @@ struct StapleTile {
 
 struct Plan {
   int rows, tile, stages, blocks_per_sm;
-  long long ntiles, nblk, smem;
+  long long ntiles, nblk, smem, chunks;  // chunks: rater chunks, 1 for a single-pass form
 };
 
 template <int kRows>
 Plan plan_of(long long C, long long R, long long V) {
   using T = StapleTile<kRows>;
-  Plan p{kRows, T::tile, T::stages, T::blocks_per_sm, (V + T::tile - 1) / T::tile, 0, T::smem(R)};
+  Plan p{kRows, T::tile, T::stages, T::blocks_per_sm, (V + T::tile - 1) / T::tile, 0, T::smem(R), 1};
   const long long wave = (static_cast<long long>(kSMs) * T::blocks_per_sm + C - 1) / C;
+  p.nblk = p.ntiles < wave ? p.ntiles : wave;
+  return p;
+}
+
+// The chunked form's plan: M-step tiles of kChunkTile voxels, one wave of
+// kChunkBlocksPerSm blocks an SM over every (case, chunk); no dynamic
+// shared memory.
+Plan plan_chunked(long long C, long long R, long long V) {
+  const long long chunks = (R + kChunk - 1) / kChunk;
+  Plan p{0, kChunkTile, 0, kChunkBlocksPerSm, (V + kChunkTile - 1) / kChunkTile, 0, 0, chunks};
+  const long long wave = (static_cast<long long>(kSMs) * kChunkBlocksPerSm + C * chunks - 1) / (C * chunks);
   p.nblk = p.ntiles < wave ? p.ntiles : wave;
   return p;
 }
@@ -109,6 +144,7 @@ Plan plan_of(long long C, long long R, long long V) {
   F(26) F(28) F(30) F(32)
 
 Plan plan(long long C, long long R, long long V) {
+  if (R > kChunk) return plan_chunked(C, R, V);
   switch (R + (R & 1)) {
 #define K4_PLAN(n) case n: return plan_of<n>(C, R, V);
     K4_FORMS(K4_PLAN)
@@ -187,8 +223,8 @@ __global__ void __launch_bounds__(kThreads, StapleTile<kRows>::blocks_per_sm) st
   const int rows = kRows ? kRows : R;  // rows of a stage
   extern __shared__ __align__(16) uint8_t s_ring[];  // kWarps x kStages x rows x kSlice bytes
   float* s_acc = reinterpret_cast<float*>(s_ring + kStages * rows * kTile);  // R > 32: (R + 1) x kThreads
-  __shared__ float s_coef[kMaxR];
-  __shared__ float s_red[kWarps][kMaxR + 1];
+  __shared__ float s_coef[kChunk];
+  __shared__ float s_red[kWarps][kChunk + 1];
   __shared__ bool s_last;
 
   const int tid = threadIdx.x;
@@ -339,9 +375,217 @@ __global__ void __launch_bounds__(kThreads, StapleTile<kRows>::blocks_per_sm) st
   if (tid == 0) tickets[c] = 0u;  // ready for the next pass on this stream
 }
 
+// ---------------------------------------------------------------- R > kChunk
+
+// Bytes v .. v + 3 of a rater row as one word, byte k = voxel v + k; zeros
+// from V on. `aligned`: V % 4 == 0 and the row starts on 4 bytes.
+__device__ __forceinline__ uint32_t load_word(const uint8_t* __restrict__ row, int64_t v, int64_t V,
+                                              bool aligned) {
+  if (aligned) return __ldg(reinterpret_cast<const uint32_t*>(row + v));  // v < V, so v + 3 < V
+  uint32_t word = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    if (v + k < V) word |= static_cast<uint32_t>(__ldg(row + v + k)) << (8 * k);
+  return word;
+}
+
+// Floats v .. v + 3 of a row (zeros from V on), and their store.
+__device__ __forceinline__ float4 load_f4(const float* __restrict__ row, int64_t v, int64_t V,
+                                          bool aligned) {
+  if (aligned) return __ldg(reinterpret_cast<const float4*>(row + v));
+  float x[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) x[k] = v + k < V ? __ldg(row + v + k) : 0.f;
+  return make_float4(x[0], x[1], x[2], x[3]);
+}
+
+__device__ __forceinline__ void store_f4(float* __restrict__ row, int64_t v, int64_t V, float4 x,
+                                         bool aligned) {
+  if (aligned) {
+    *reinterpret_cast<float4*>(row + v) = x;
+  } else {
+    if (v < V) row[v] = x.x;
+    if (v + 1 < V) row[v + 1] = x.y;
+    if (v + 2 < V) row[v + 2] = x.z;
+    if (v + 3 < V) row[v + 3] = x.w;
+  }
+}
+
+// tpart[c, k, j] = sum of coef_r d_rj over chunk k's rows, in row order.
+// Grid (ceil(V / 1,024), chunks, C). active null: every case (E-only form).
+__global__ void __launch_bounds__(kThreads) staple_logit_chunk_kernel(
+    const uint8_t* __restrict__ d, const float* __restrict__ coef,
+    const uint8_t* __restrict__ active, float* __restrict__ tpart, int R, int64_t V, bool aligned) {
+  const int c = blockIdx.z;
+  const int k = blockIdx.y;
+  if (active != nullptr && !active[c]) return;  // uniform over the case
+  __shared__ float s_coef[kChunk];
+  const int r0 = k * kChunk;
+  const int nr = min(kChunk, R - r0);
+  for (int r = threadIdx.x; r < nr; r += kThreads) s_coef[r] = coef[static_cast<int64_t>(c) * R + r0 + r];
+  __syncthreads();
+  const int64_t v = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) * 4;
+  if (v >= V) return;
+  const uint8_t* row = d + (static_cast<int64_t>(c) * R + r0) * V;
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+#pragma unroll 8
+  for (int r = 0; r < nr; ++r) {
+    const uint32_t word = load_word(row + static_cast<int64_t>(r) * V, v, V, aligned);
+    const float cr = s_coef[r];
+    s0 = fmaf(cr, byte_f(word, 0), s0);
+    s1 = fmaf(cr, byte_f(word, 1), s1);
+    s2 = fmaf(cr, byte_f(word, 2), s2);
+    s3 = fmaf(cr, byte_f(word, 3), s3);
+  }
+  store_f4(tpart + (static_cast<int64_t>(c) * gridDim.y + k) * V, v, V, make_float4(s0, s1, s2, s3),
+           aligned);
+}
+
+// w[c, j] = sigmoid(base_c + the chunks' sums in chunk order). Grid
+// (ceil(V / 1,024), C).
+__global__ void __launch_bounds__(kThreads) staple_sigmoid_chunk_kernel(
+    const float* __restrict__ tpart, const float* __restrict__ base,
+    const uint8_t* __restrict__ active, float* __restrict__ w, int chunks, int64_t V, bool aligned) {
+  const int c = blockIdx.y;
+  if (active != nullptr && !active[c]) return;
+  const int64_t v = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) * 4;
+  if (v >= V) return;
+  const float* tp = tpart + static_cast<int64_t>(c) * chunks * V;
+  float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int k = 0; k < chunks; ++k) {
+    const float4 x = load_f4(tp + static_cast<int64_t>(k) * V, v, V, aligned);
+    t.x += x.x;
+    t.y += x.y;
+    t.z += x.z;
+    t.w += x.w;
+  }
+  const float b = base[c];
+  store_f4(w + static_cast<int64_t>(c) * V, v, V,
+           make_float4(sigmoid(b + t.x), sigmoid(b + t.y), sigmoid(b + t.z), sigmoid(b + t.w)),
+           aligned);
+}
+
+// The M-step: partial[c, r, b] = block b's sum of d_rj w_j over its tiles,
+// partial[c, R, b] its sum of w_j (chunk 0's blocks); the last block of a
+// case sums each row of partials in block order into sums[c, r]. Grid
+// (nblk, chunks, C).
+__global__ void __launch_bounds__(kThreads, kChunkBlocksPerSm) staple_mstep_chunk_kernel(
+    const uint8_t* __restrict__ d, const float* __restrict__ w, const uint8_t* __restrict__ active,
+    float* __restrict__ partial, unsigned* __restrict__ tickets, float* __restrict__ sums, int R,
+    int64_t V, int64_t nblk, bool aligned) {
+  const int c = blockIdx.z;
+  const int k = blockIdx.y;
+  if (!active[c]) return;
+  __shared__ bool s_last;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int r0 = k * kChunk;
+  const int nr = min(kChunk, R - r0);
+  const uint8_t* dc = d + (static_cast<int64_t>(c) * R + r0) * V;
+  const float* wc = w + static_cast<int64_t>(c) * V;
+  const int64_t ntiles = (V + kChunkTile - 1) / kChunkTile;
+  float acc[kRowsPerWarp];
+#pragma unroll
+  for (int j = 0; j < kRowsPerWarp; ++j) acc[j] = 0.f;
+  float acc_w = 0.f;
+  for (int64_t i = blockIdx.x; i < ntiles; i += nblk) {
+    const int64_t v = i * kChunkTile + lane * 4;
+    const float4 wv = v < V ? load_f4(wc, v, V, aligned) : make_float4(0.f, 0.f, 0.f, 0.f);
+    acc_w += (wv.x + wv.y) + (wv.z + wv.w);
+#pragma unroll
+    for (int j = 0; j < kRowsPerWarp; ++j) {
+      const int r = warp + j * kWarps;  // uniform over the warp
+      if (r < nr) {
+        const uint32_t word = v < V ? load_word(dc + static_cast<int64_t>(r) * V, v, V, aligned) : 0u;
+        float part = byte_f(word, 0) * wv.x;
+        part = fmaf(byte_f(word, 1), wv.y, part);
+        part = fmaf(byte_f(word, 2), wv.z, part);
+        part = fmaf(byte_f(word, 3), wv.w, part);
+        acc[j] += part;
+      }
+    }
+  }
+  float* part_c = partial + static_cast<int64_t>(c) * (R + 1) * nblk;
+#pragma unroll
+  for (int j = 0; j < kRowsPerWarp; ++j) {
+    const int r = warp + j * kWarps;
+    if (r < nr) {
+      const float x = warp_sum(acc[j]);
+      if (lane == 0) part_c[static_cast<int64_t>(r0 + r) * nblk + blockIdx.x] = x;
+    }
+  }
+  if (k == 0 && warp == 0) {
+    const float x = warp_sum(acc_w);
+    if (lane == 0) part_c[static_cast<int64_t>(R) * nblk + blockIdx.x] = x;
+  }
+
+  __threadfence();  // this block's partials are visible device-wide before the ticket
+  __syncthreads();
+  if (tid == 0)
+    s_last = atomicAdd(&tickets[c], 1u) == static_cast<unsigned>(nblk * gridDim.y - 1);
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  if (nblk >= 32) {  // a warp a row: its lanes stride the blocks, then a fixed tree
+    for (int r = warp; r <= R; r += kWarps) {
+      const float* row = part_c + static_cast<int64_t>(r) * nblk;
+      float x = 0.f;
+#pragma unroll 8
+      for (int64_t b = lane; b < nblk; b += 32) x += __ldcg(row + b);
+      x = warp_sum(x);
+      if (lane == 0) sums[static_cast<int64_t>(c) * (R + 1) + r] = x;
+    }
+  } else {  // few blocks and many rows (R in the thousands): a thread a row, in block order
+    for (int r = tid; r <= R; r += kThreads) {
+      const float* row = part_c + static_cast<int64_t>(r) * nblk;
+      float x = 0.f;
+#pragma unroll 8
+      for (int64_t b = 0; b < nblk; ++b) x += __ldcg(row + b);
+      sums[static_cast<int64_t>(c) * (R + 1) + r] = x;
+    }
+  }
+  if (tid == 0) tickets[c] = 0u;  // ready for the next pass on this stream
+}
+
+// The chunked pass: the E-step's two kernels, then (unless kPosterior) the
+// M-step. tpart: (C, chunks, V) f32 scratch; w: (C, V) f32, scratch or the
+// E-only form's output.
+template <bool kPosterior>
+cudaError_t launch_chunked(const void* d, const void* coef, const void* base, const void* active,
+                           void* w, void* tpart, void* partial, void* tickets, void* sums,
+                           long long C, long long R, long long V, long long nblk, cudaStream_t s) {
+  const long long chunks = (R + kChunk - 1) / kChunk;
+  const bool aligned = V % 4 == 0 && reinterpret_cast<uintptr_t>(d) % 4 == 0 &&
+                       reinterpret_cast<uintptr_t>(tpart) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const unsigned vblocks = static_cast<unsigned>((V + 4 * kThreads - 1) / (4 * kThreads));
+  const uint8_t* act = kPosterior ? nullptr : static_cast<const uint8_t*>(active);
+  staple_logit_chunk_kernel<<<dim3(vblocks, static_cast<unsigned>(chunks), static_cast<unsigned>(C)),
+                              kThreads, 0, s>>>(
+      static_cast<const uint8_t*>(d), static_cast<const float*>(coef), act,
+      static_cast<float*>(tpart), static_cast<int>(R), V, aligned);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  staple_sigmoid_chunk_kernel<<<dim3(vblocks, static_cast<unsigned>(C)), kThreads, 0, s>>>(
+      static_cast<const float*>(tpart), static_cast<const float*>(base), act, static_cast<float*>(w),
+      static_cast<int>(chunks), V, aligned);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || kPosterior) return err;
+  staple_mstep_chunk_kernel<<<dim3(static_cast<unsigned>(nblk), static_cast<unsigned>(chunks),
+                                   static_cast<unsigned>(C)),
+                              kThreads, 0, s>>>(
+      static_cast<const uint8_t*>(d), static_cast<const float*>(w), act,
+      static_cast<float*>(partial), static_cast<unsigned*>(tickets), static_cast<float*>(sums),
+      static_cast<int>(R), V, nblk, aligned);
+  return cudaGetLastError();
+}
+
 int check_sizes(long long C, long long R, long long V, long long nblk) {
   if (C <= 0 || R <= 0 || V <= 0 || nblk <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (R > kMaxR || C > 65535 || nblk != plan(C, R, V).nblk)
+  const Plan p = plan(C, R, V);
+  if (R > 2147483647LL || C > 65535 || p.chunks > 65535 || nblk != p.nblk ||
+      (V + 4 * kThreads - 1) / (4 * kThreads) > 2147483647LL)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   return static_cast<int>(cudaSuccess);
 }
@@ -385,11 +629,13 @@ cudaError_t launch_em(const void* d, const void* coef, const void* base, const v
 }  // namespace
 
 // The plan of a pass over (C, R, V): out = [rows, tile, stages, blocks an
-// SM, tiles a case, blocks a case, dynamic shared bytes a block].
+// SM, tiles a case, blocks a case, dynamic shared bytes a block, rater
+// chunks]. chunks > 1: the chunked form (R > 128), which needs the scratch
+// tpart (C, chunks, V) f32 and, for a pass, w (C, V) f32.
 extern "C" void staple_tile_plan(long long C, long long R, long long V, long long* out) {
   const Plan p = plan(C, R, V);
-  const long long v[7] = {p.rows, p.tile, p.stages, p.blocks_per_sm, p.ntiles, p.nblk, p.smem};
-  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  const long long v[8] = {p.rows, p.tile, p.stages, p.blocks_per_sm, p.ntiles, p.nblk, p.smem, p.chunks};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
 }
 
 // One EM pass for every active case. d: (C, R, V) uint8; coef: (C, R) f32;
@@ -397,27 +643,41 @@ extern "C" void staple_tile_plan(long long C, long long R, long long V, long lon
 // tickets: (C,) uint32 scratch, zero before the call and left zero after it;
 // sums: (C, R + 1) f32, wd in columns 0..R-1 and ws in column R. nblk, the
 // blocks a case `partial` was sized for, must be the plan's
-// (`staple_tile_plan`); the call fails otherwise.
+// (`staple_tile_plan`); the call fails otherwise. tpart and wbuf: the
+// chunked form's scratch (the plan's chunks > 1), else unused.
 extern "C" int staple_em_iter(const void* d, const void* coef, const void* base,
                               const void* active, void* partial, void* tickets, void* sums,
-                              long long C, long long R, long long V, long long nblk,
-                              void* stream) {
+                              void* tpart, void* wbuf, long long C, long long R, long long V,
+                              long long nblk, void* stream) {
   (void)cudaGetLastError();  // report this launch's error, not an earlier one
   const int bad = check_sizes(C, R, V, nblk);
   if (bad) return bad;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (R > kChunk) {
+    if (tpart == nullptr || wbuf == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(launch_chunked<false>(d, coef, base, active, wbuf, tpart, partial,
+                                                  tickets, sums, C, R, V, nblk, s));
+  }
   return static_cast<int>(launch_em<false>(d, coef, base, active, nullptr, partial, tickets, sums,
-                                           C, R, V, nblk, static_cast<cudaStream_t>(stream)));
+                                           C, R, V, nblk, s));
 }
 
 // The E-step alone: w (C, V) f32 = sigmoid(base + coef . d) for every case.
+// tpart: the chunked form's scratch, else unused.
 extern "C" int staple_posterior(const void* d, const void* coef, const void* base, void* w,
-                                long long C, long long R, long long V, long long nblk,
+                                void* tpart, long long C, long long R, long long V, long long nblk,
                                 void* stream) {
   (void)cudaGetLastError();
   const int bad = check_sizes(C, R, V, nblk);
   if (bad) return bad;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (R > kChunk) {
+    if (tpart == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(launch_chunked<true>(d, coef, base, nullptr, w, tpart, nullptr,
+                                                 nullptr, nullptr, C, R, V, nblk, s));
+  }
   return static_cast<int>(launch_em<true>(d, coef, base, nullptr, w, nullptr, nullptr, nullptr, C,
-                                           R, V, nblk, static_cast<cudaStream_t>(stream)));
+                                           R, V, nblk, s));
 }
 
 extern "C" const char* staple_error_string(int code) {

@@ -22,7 +22,6 @@ from pathlib import Path
 import numpy as np
 
 from .hybrid_dataset import HybridIdDataset
-from .nifti import load_nifti
 from .np_ops import pad_to_size_np, resize_nd_np
 
 STATES = {
@@ -144,17 +143,25 @@ def get_crossmoda_data_load_closure(
 
         print(f"Loading CrossMoDa {dom} images and labels...")
 
-        # Sequential reads through the port's NIfTI reader (float64, nibabel's
-        # get_fdata semantics); the JAX loader's C++ batch reader
-        # (`native_io.try_native_load_batch`) comes with a later slice (the native
-        # bridges).
+        # The C++ batch reader decodes a chunk of volumes on threads (float64,
+        # nibabel's get_fdata semantics), as JAX's loader does; without the
+        # library, sequential reads through the port's NIfTI reader. A chunk
+        # of 8 keeps at most 8 volumes at full resolution in flight before
+        # _prep_volume shrinks them.
+        from .native_io import reader_name, try_native_load_batch
+
+        print(f"Reading volumes with the {reader_name()} NIfTI reader")
+        chunk = 8
+
         def _ingest(items, store, is_label):
-            for _3d_id, _file in items:
-                store[_3d_id] = _prep_volume(
-                    load_nifti(_file).get_fdata(), _size, resample, crop_3d_w_dim_range,
-                    is_label=is_label,
-                    **({} if is_label else {"normalize": normalize}),
-                )
+            for c0 in range(0, len(items), chunk):
+                part = items[c0 : c0 + chunk]
+                for (_3d_id, _file), vol in zip(part, try_native_load_batch([f for _, f in part])):
+                    store[_3d_id] = _prep_volume(
+                        vol, _size, resample, crop_3d_w_dim_range,
+                        is_label=is_label,
+                        **({} if is_label else {"normalize": normalize}),
+                    )
 
         _ingest(list(label_paths.items()), label_data_3d, True)
         _ingest(list(img_paths.items()), img_data_3d, False)

@@ -159,9 +159,10 @@ def test_consensus_default_device_never_falls_back_to_cpu(tmp_path, monkeypatch)
     coef, base = torch.zeros(1, 3, device="meta"), torch.zeros(1, device="meta")
     for call in (lambda: staple_em_iter(d, coef, base, torch.ones(1, dtype=torch.bool)),
                  lambda: staple_posterior(d, coef, base),
-                 # more raters than the kernel takes (staple_pallas.py:88), on any device
-                 lambda: staple_posterior(torch.zeros(1, 129, 4, dtype=torch.uint8),
-                                          torch.zeros(1, 129), torch.zeros(1)),
                  lambda: staple_posterior(torch.zeros(1, 3, 4), torch.zeros(1, 3), torch.zeros(1))):
         with pytest.raises(ValueError):
             call()
+    # More raters than the Pallas kernel takes (staple_pallas.py:88): a CPU
+    # tensor takes the plain version, as JAX's XLA consensus has no limit.
+    w = staple_posterior(torch.ones(1, 129, 4, dtype=torch.uint8), torch.zeros(1, 129), torch.zeros(1))
+    assert torch.equal(w, torch.full((1, 4), 0.5))

@@ -244,6 +244,10 @@ def test_port_imports_no_jax():
     assert cli_slice <= rel
     side_slice = {f"deep_staple_torch/{m}.py" for m in ("ops/mind", "ops/stacking", "models/lraspp2d")}
     assert side_slice <= rel
+    bridges_slice = {f"deep_staple_torch/{m}.py" for m in (
+        "ops/grid_sample", "ops/morphology", "ops/conv3d", "ops/registration", "tools/register",
+        "models/torch_interop", "data/native_io")}
+    assert bridges_slice <= rel
     banned = ("jax", "jaxlib", "flax", "optax", "deep_staple_tpu")
     bad = [
         (str(f.relative_to(REPO)), mod)
