@@ -87,7 +87,8 @@ REPO = Path(__file__).resolve().parent
 WORK = REPO / "build" / "chip_smoke"
 PHASES = ("device", "build", "kernels", "train_kernels", "consensus_kernels", "serve", "e2e",
           "profile", "train", "train_e2e", "train_profile", "consensus", "train_dl", "pipeline",
-          "side_paths", "oracle", "registration", "times")
+          "side_paths", "oracle", "registration", "jax_checkpoint", "doctor", "dataset_tools",
+          "times")
 
 # The depthwise conv's shapes at the serve CLI's defaults: size 128^3 with
 # crop (45, 95) gives 128x128x50, eval x2.0 gives 256x256x100 at the input,
@@ -232,6 +233,9 @@ PATH_KERNELS = {
     "registration": (),  # no kernel of the port: JAX computes it outside any Pallas kernel
     "side_pipeline": ("depthwise_conv3d_fwd", "depthwise_conv3d_grad_x", "depthwise_conv3d_grad_w",
                       "staple_em_iter"),
+    "jax_checkpoint": ("depthwise_conv3d_fwd", "depthwise_conv3d_grad_x",
+                       "depthwise_conv3d_grad_w", "sep_warp_pass"),
+    "dataset_tools": (),  # the registration estimate: PyTorch ops, no kernel of the port
 }
 # The device of the kernel and training phases. main() runs only with CUDA;
 # a CPU rehearsal of the control flow may import this module and set "cpu".
@@ -2671,6 +2675,536 @@ def phase_registration(rec, seed):
         raise AssertionError(f"registration: {failures}")
 
 
+# --------------------------------------------- JAX checkpoints, doctor, tools
+
+# The fixture of the JAX-checkpoint phase: 5 cases x 4 atlases at the
+# driver's 128x128x50, one validation image, so 16 training instances: two
+# production steps an epoch at batch 8.
+JAX_CKPT_CASES, JAX_CKPT_ATLASES = 5, 4
+# The serve CLI's defaults (`deep_staple_tpu/serve.py:230-252`: size 128^3,
+# batch 4, eval x2.0) and the production W-crop, as the serve phase serves.
+SERVE_SIZE, SERVE_CROP = (128, 128, 128), (45, 95)
+
+
+def _serve_inputs(root, seed, n=6):
+    from deep_staple_torch.data.nifti import save_nifti
+
+    rng = np.random.RandomState(seed)
+    (root / "inputs").mkdir(parents=True)
+    paths = []
+    for i in range(n):
+        p = root / "inputs" / f"vol{i}.nii.gz"
+        save_nifti(p, _synthetic_volume(rng), affine=np.diag([0.5, 0.5, 1.0, 1.0]))
+        paths.append(str(p))
+    return paths
+
+
+def _no_device():
+    """(kwarg, argv) of "no --device" on the card; a CPU rehearsal passes
+    its device itself."""
+    return (None, []) if DEV == "cuda" else (DEV, ["--device", DEV])
+
+
+def _max_rel_gap(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def phase_jax_checkpoint(rec, seed):
+    """A JAX-package checkpoint served and resumed by the port at full width
+    (the production model, `TrainConfig.tpu_production`). The state: two
+    production train steps of `train_dl` on the synthetic fixture, written
+    as the JAX package writes it (`config.json` + `state.msgpack` by the
+    port's flax encoder, `save_jax_checkpoint`; no `state.pt`) and, beside
+    it, as the port's `state.pt`. Then `serve.main` with no --device on
+    each directory (label maps equal, logits bitwise or within 1e-6 of the
+    largest) and `train_dl` with auto_resume for one more epoch from each:
+    the restored states and the first resumed step (its losses and DP
+    update) bit for bit, the rest within the driver phase's card bounds
+    (cuDNN's deterministic algorithms are on for the phase; F.interpolate's
+    backward adds with atomics)."""
+    import tempfile
+
+    import torch
+
+    from deep_staple_torch import serve as serve_mod
+    from deep_staple_torch.data.nifti import load_nifti
+    from deep_staple_torch.data.synthetic import generate_synthetic_crossmoda
+    from deep_staple_torch.ops.resample import interpolate_sample
+    from deep_staple_torch.train import driver
+    from deep_staple_torch.train.checkpoint import (
+        restore_checkpoint, save_checkpoint, save_jax_checkpoint,
+    )
+    from deep_staple_torch.train.prepare import prepare_data
+    from deep_staple_torch.train.state import create_state
+
+    out = rec["jax_checkpoint"] = {}
+    failures = []
+    dev_kw, dev_argv = _no_device()
+    t0 = time.perf_counter()
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        with tempfile.TemporaryDirectory(prefix="jax_ckpt_") as tmp:
+            root = Path(tmp)
+            generate_synthetic_crossmoda(root / "ds", num_cases=JAX_CKPT_CASES,
+                                         atlas_count=JAX_CKPT_ATLASES, bad_atlases_per_case=1,
+                                         size=TRAIN_DL_SIZE, seed=seed)
+            cfg = _dl_config(root / "ds", epochs=1, batch_size=8, num_val_images=1,
+                             save_labels=False, log_jsonl=False,
+                             output_dir=str(root / "out0"), mdl_save_prefix=str(root / "m0"))
+            dataset, atlas_count = prepare_data(cfg)
+            t = _sync()
+            res = driver.train_dl("jc", cfg, dataset, atlas_count, device=DEV)[0]
+            out["first_epoch_s"] = _sync() - t
+            state = res["state"]
+            params = sum(p.numel() for p in state.model.parameters())
+            if params != MODEL_PARAMETERS or state.step != 2:
+                failures.append(f"{params} parameters, {state.step} steps")
+            # The directories: a JAX checkpoint (no state.pt) and the port's.
+            serve_cfg = cfg.replace(crop_3d_w_dim_range=SERVE_CROP)
+            dirs = {"msgpack": root / "jax" / "jc_fold0_epx0", "pt": root / "pt" / "jc_fold0_epx0"}
+            save_jax_checkpoint(dirs["msgpack"], state, serve_cfg)
+            save_checkpoint(dirs["pt"], state, serve_cfg)
+            files = {k: sorted(q.name for q in d.iterdir()) for k, d in dirs.items()}
+            if files["msgpack"] != ["config.json", "state.msgpack"]:
+                failures.append(f"JAX directory holds {files['msgpack']}")
+            out["msgpack_bytes"] = (dirs["msgpack"] / "state.msgpack").stat().st_size
+            out["pt_bytes"] = (dirs["pt"] / "state.pt").stat().st_size
+
+            # Load time of each format, and the restored states bit for bit.
+            restored, load_s = {}, {}
+            for k, d in dirs.items():
+                model, _ = driver.make_model(cfg, 2)
+                template = create_state(model, len(dataset), device=DEV)
+                t = _sync()
+                restored[k] = restore_checkpoint(d, template)
+                load_s[k] = _sync() - t
+            bad = _states_equal(restored["msgpack"], restored["pt"]) + \
+                _states_equal(restored["pt"], state)
+            if bad:
+                failures.append(f"restored states differ in {bad[:5]}")
+            out["restore_s"] = load_s
+            serving_s = {}
+            for k, d in dirs.items():
+                t = _sync()
+                serve_mod.load_serving_state(d, device=dev_kw)
+                serving_s[k] = _sync() - t
+            out["load_serving_state_s"] = serving_s
+            log(f"[jax_checkpoint] {params:,} parameters after {state.step} production steps "
+                f"({out['first_epoch_s']:.1f} s); state.msgpack {out['msgpack_bytes']:,} B, "
+                f"state.pt {out['pt_bytes']:,} B; restore_checkpoint "
+                f"{load_s['msgpack'] * 1e3:.1f} / {load_s['pt'] * 1e3:.1f} ms, "
+                f"load_serving_state {serving_s['msgpack'] * 1e3:.1f} / "
+                f"{serving_s['pt'] * 1e3:.1f} ms (msgpack / pt); restored states "
+                f"{'bitwise equal' if not bad else 'DIFFER'}")
+
+            inputs = _serve_inputs(root, seed)
+            size_argv = ["--size", *map(str, SERVE_SIZE)]
+            serve_mod.main(["--checkpoint", str(dirs["pt"]), "--inputs", *inputs[:4],
+                            "--output-dir", str(root / "warmup"), *size_argv, *dev_argv])
+            reset_counts()
+            served = {}
+            for k, d in dirs.items():
+                t = _sync()
+                r = serve_mod.main(["--checkpoint", str(d), "--inputs", *inputs,
+                                    "--output-dir", str(root / f"served_{k}"), *size_argv,
+                                    *dev_argv])
+                served[k] = (r, _sync() - t)
+            same_maps = all(np.array_equal(load_nifti(a).data, load_nifti(b).data)
+                            for a, b in zip(served["msgpack"][0].paths, served["pt"][0].paths))
+            # The logits of one batch through each directory's model.
+            logits = {}
+            x = torch.from_numpy(np.stack([
+                serve_mod.preprocess(load_nifti(p).get_fdata(), serve_cfg, SERVE_SIZE)
+                for p in inputs[:4]]))
+            for k, d in dirs.items():
+                model, _, _, _ = serve_mod.load_serving_state(d, device=dev_kw)
+                with torch.inference_mode():
+                    img = interpolate_sample(x.to(DEV), None, 2.0)[0]
+                    logits[k] = model(img[..., None])["out"].float().cpu()
+            logit_gap = float((logits["msgpack"] - logits["pt"]).abs().max())
+            logit_scale = float(logits["pt"].abs().max())
+            out["serve"] = {k: {"volumes": len(r.paths), "seconds": s, "executions": r.executions}
+                            for k, (r, s) in served.items()}
+            out["label_maps_equal"] = same_maps
+            out["logit_max_abs_gap"], out["logit_max_abs"] = logit_gap, logit_scale
+            if not same_maps or logit_gap > 1e-6 * logit_scale or \
+                    len(served["msgpack"][0].paths) != 6:
+                failures.append(f"serving: maps equal {same_maps}, logit gap {logit_gap}")
+            log(f"[jax_checkpoint] serve.main, no --device, 6 volumes at {SERVE_SIZE}, crop "
+                f"{SERVE_CROP}, batch 4, x2.0: {served['msgpack'][1]:.2f} s from state.msgpack, "
+                f"{served['pt'][1]:.2f} s from state.pt; label maps "
+                f"{'equal' if same_maps else 'DIFFER'}; logits of one batch "
+                f"{tuple(logits['pt'].shape)} max |d| {logit_gap:.3g} (largest |logit| "
+                f"{logit_scale:.3g}, bound 1e-6 of it)")
+
+            # One more epoch from each directory, auto_resume, each step's
+            # losses and DP vector recorded.
+            resumed = {}
+            make_train_step = driver.make_train_step
+            for k in dirs:
+                steps = []
+
+                def recording(*a, _steps=steps, **kw):
+                    step = make_train_step(*a, **kw)
+
+                    def run(*aa, **kk):
+                        new_state, metrics = step(*aa, **kk)
+                        _steps.append((float(metrics["loss"]), float(metrics["ce_loss"]),
+                                       new_state.dp_params.cpu().numpy()))
+                        return new_state, metrics
+                    return run
+
+                rcfg = cfg.replace(epochs=2, auto_resume=True,
+                                   mdl_save_prefix=str(root / ("jax" if k == "msgpack" else "pt")),
+                                   output_dir=str(root / f"out_{k}"))
+                driver.make_train_step = recording
+                try:
+                    t = _sync()
+                    r = driver.train_dl("jc", rcfg, *prepare_data(rcfg), device=DEV)[0]
+                    s = _sync() - t
+                finally:
+                    driver.make_train_step = make_train_step
+                hist = r["writer"].history
+                resumed[k] = {"s": s, "epochs": [h["ref_epoch_idx"] for h in hist
+                                                 if "ref_epoch_idx" in h],
+                              "losses": [h["losses/loss_fold0"] for h in hist
+                                         if "losses/loss_fold0" in h],
+                              "steps": steps, "dp": r["state"].dp_params.cpu().numpy()}
+            counts = read_counts()
+            _record_path(rec, "jax_checkpoint", counts)
+            a, b = resumed["msgpack"], resumed["pt"]
+            # The first resumed step's forward and DP update start from equal
+            # states and add nothing with atomics: equal bit for bit. Its
+            # backward does (F.interpolate's trilinear backward on CUDA), so
+            # the later steps may differ by the card's own run-to-run spread,
+            # held to the driver phase's card bounds.
+            first_equal = (a["steps"][0][:2] == b["steps"][0][:2]
+                           and np.array_equal(a["steps"][0][2], b["steps"][0][2]))
+            loss_gap = _max_rel_gap(a["losses"], b["losses"])
+            dp_gap = _max_rel_gap(a["dp"], b["dp"])
+            out["resume"] = {k: {"s": v["s"], "epochs": v["epochs"], "losses": v["losses"],
+                                 "step_losses": [x[:2] for x in v["steps"]]}
+                             for k, v in resumed.items()}
+            out["resume"].update(first_step_equal=first_equal, loss_rel_gap=loss_gap,
+                                 dp_rel_gap=dp_gap, launches=counts)
+            if a["epochs"] != [1] or b["epochs"] != [1] or len(a["steps"]) != 2 or \
+                    not first_equal or loss_gap > TRAIN_DL_LOSS_RTOL or dp_gap > TRAIN_DL_DP_RTOL:
+                failures.append(f"resume: epochs {a['epochs']} / {b['epochs']}, first step equal "
+                                f"{first_equal}, loss gap {loss_gap}, DP gap {dp_gap}")
+            log(f"[jax_checkpoint] train_dl auto_resume, epoch 1 of the production "
+                f"configuration: {a['s']:.1f} s from state.msgpack, {b['s']:.1f} s from "
+                f"state.pt; first step's losses and DP vector "
+                f"{'bitwise equal' if first_equal else 'DIFFER'}; step losses "
+                f"{[x[:2] for x in a['steps']]} / {[x[:2] for x in b['steps']]}; epoch loss max "
+                f"rel gap {loss_gap:.3g} (bound {TRAIN_DL_LOSS_RTOL}), final DP {dp_gap:.3g} of "
+                f"its largest (bound {TRAIN_DL_DP_RTOL}); launches {counts}")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+    out["s"] = time.perf_counter() - t0
+    log(f"[jax_checkpoint] {out['s']:.1f} s in all")
+    if failures:
+        raise AssertionError(f"jax_checkpoint: {failures}")
+
+
+def phase_doctor(rec):
+    """`python3 -m deep_staple_torch.doctor` in a subprocess: rc 0 and "all
+    checks passed" (the card, nvcc and the three kernels built)."""
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "deep_staple_torch.doctor"], cwd=REPO,
+                          capture_output=True, text=True, timeout=900)
+    s = time.perf_counter() - t
+    for line in proc.stdout.splitlines():
+        log(f"[doctor] {line}")
+    rec["doctor"] = {"rc": proc.returncode, "s": s, "report": proc.stdout}
+    log(f"[doctor] rc {proc.returncode} in {s:.1f} s")
+    if proc.returncode != 0 or "all checks passed" not in proc.stdout:
+        raise AssertionError(f"doctor: rc {proc.returncode}\n{proc.stdout}\n{proc.stderr[-2000:]}")
+
+
+# The TCIA tree of the dataset-tools phase: cases of a ceT1 series at the
+# registration phase's fixed size and an hrT2 series at its moving size over
+# the same field of view, rotated and shifted (`_registration_pair`), with an
+# RTSTRUCT on the ceT1 series. 1 mm pixels; slices along -z.
+DS_CASES = 2
+
+
+def _dcm_el(group, elem, vr, value: bytes) -> bytes:
+    import struct
+
+    head = struct.pack("<HH", group, elem) + vr
+    if vr in (b"OB", b"OW", b"SQ", b"UN", b"UT"):
+        return head + b"\x00\x00" + struct.pack("<I", len(value)) + value
+    return head + struct.pack("<H", len(value)) + value
+
+
+def _dcm_str(s: str) -> bytes:
+    b = s.encode()
+    return b + b" " if len(b) % 2 else b
+
+
+def _dcm_item(body: bytes) -> bytes:
+    import struct
+
+    return struct.pack("<HHI", 0xFFFE, 0xE000, len(body)) + body
+
+
+def _dcm_file(path, body: bytes):
+    """A Part-10 file, explicit VR little endian."""
+    meta = _dcm_el(0x0002, 0x0010, b"UI", _dcm_str("1.2.840.10008.1.2.1"))
+    path.write_bytes(b"\x00" * 128 + b"DICM" + meta + body)
+
+
+def _write_series(folder, vol, dz, patient, desc, uid):
+    """One MR series: a file a slice, uint16 pixels at rescale slope 1e-3."""
+    import struct
+
+    folder.mkdir(parents=True)
+    rows, cols, slices = vol.shape
+    pix = np.clip(np.round(vol * 1000.0), 0, 65535).astype(np.uint16)
+    head = b"".join([
+        _dcm_el(0x0008, 0x0060, b"CS", _dcm_str("MR")),
+        _dcm_el(0x0008, 0x103E, b"LO", _dcm_str(desc)),
+        _dcm_el(0x0010, 0x0020, b"LO", _dcm_str(patient)),
+        _dcm_el(0x0020, 0x000E, b"UI", _dcm_str(uid)),
+    ])
+    tail = b"".join([
+        _dcm_el(0x0020, 0x0037, b"DS", _dcm_str("0\\1\\0\\1\\0\\0")),
+        _dcm_el(0x0028, 0x0010, b"US", struct.pack("<H", rows)),
+        _dcm_el(0x0028, 0x0011, b"US", struct.pack("<H", cols)),
+        _dcm_el(0x0028, 0x0030, b"DS", _dcm_str("1\\1")),
+        _dcm_el(0x0028, 0x0100, b"US", struct.pack("<H", 16)),
+        _dcm_el(0x0028, 0x0103, b"US", struct.pack("<H", 0)),
+        _dcm_el(0x0028, 0x1052, b"DS", _dcm_str("0")),
+        _dcm_el(0x0028, 0x1053, b"DS", _dcm_str("0.001")),
+    ])
+    for k in range(slices):
+        ipp = _dcm_el(0x0020, 0x0032, b"DS", _dcm_str(f"0\\0\\{-k * dz:.6f}"))
+        data = _dcm_el(0x7FE0, 0x0010, b"OW", np.ascontiguousarray(pix[:, :, k]).tobytes())
+        _dcm_file(folder / f"slice{k:03d}.dcm", head + ipp + tail + data)
+
+
+def _write_rtstruct(path, patient, shape, radius):
+    """One ROI, 'tumour': a 24-gon of `radius` voxels about the in-plane
+    centre on the middle fifth of the slices, in the ceT1 series' world."""
+    c0, c1 = (shape[0] - 1) / 2, (shape[1] - 1) / 2
+    ang = np.arange(24) * 2 * np.pi / 24
+    contours = b""
+    for k in range(2 * shape[2] // 5, 3 * shape[2] // 5):
+        pts = np.stack([c0 + radius * np.cos(ang), c1 + radius * np.sin(ang),
+                        np.full(24, -float(k))], -1)
+        text = "\\".join(f"{v:.4f}" for v in pts.reshape(-1))
+        contours += _dcm_item(_dcm_el(0x3006, 0x0050, b"DS", _dcm_str(text)))
+    roi = _dcm_item(_dcm_el(0x3006, 0x0022, b"IS", _dcm_str("1"))
+                    + _dcm_el(0x3006, 0x0026, b"LO", _dcm_str("tumour")))
+    contour_seq = _dcm_item(_dcm_el(0x3006, 0x0084, b"IS", _dcm_str("1"))
+                            + _dcm_el(0x3006, 0x0040, b"SQ", contours))
+    path.parent.mkdir(parents=True, exist_ok=True)
+    _dcm_file(path, b"".join([
+        _dcm_el(0x0008, 0x0060, b"CS", _dcm_str("RTSTRUCT")),
+        _dcm_el(0x0010, 0x0020, b"LO", _dcm_str(patient)),
+        _dcm_el(0x3006, 0x0020, b"SQ", roi),
+        _dcm_el(0x3006, 0x0039, b"SQ", contour_seq),
+    ]))
+
+
+def write_tcia_tree(raw, mapping, cases, fixed_shape, moving_shape, seed, centred=True):
+    """A raw TCIA download of `cases` cases under `raw` and the TCIA ->
+    CrossMoDa mapping CSV; -> the known voxel map (ceT1 index -> hrT2
+    index) of each case, by its sorted case folder name."""
+    import csv
+
+    truths, rows = {}, []
+    for n in range(1, cases + 1):
+        fixed, moving, a_fix, a_mov, P = _registration_pair(fixed_shape, moving_shape, seed + n,
+                                                            centred)
+        patient = f"VS-SEG-{n:03d}"
+        dz = fixed_shape[2] / moving_shape[2]
+        _write_series(raw / f"case{n}" / "t1", fixed, 1.0, patient, "t1 contrast",
+                      f"1.2.826.0.{n}.1")
+        _write_series(raw / f"case{n}" / "t2", moving, dz, patient, "hr t2",
+                      f"1.2.826.0.{n}.2")
+        _write_rtstruct(raw / f"case{n}" / "rs.dcm", patient, fixed_shape,
+                        radius=max(3.0, fixed_shape[0] / 12))
+        case = f"vs_gk_{n:03d}"
+        truths[case] = np.linalg.inv(a_mov) @ P @ a_fix
+        rows += [(f"{case}_mr_t1", f"crossmoda_{n}_ceT1", "source_training"),
+                 (f"{case}_Label", f"crossmoda_{n}", "source_training"),
+                 (f"{case}_mr_t2", f"crossmoda_{100 + n}_hrT2", "target_training")]
+    with open(mapping, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["tcia_id", "crossmoda_name", "split"])
+        w.writerows(rows)
+    return truths
+
+
+def _timed_stages(mods, stages):
+    """Wrap each module's `main` to time it; -> a function that undoes it."""
+    saved = {m: m.main for m in mods}
+    for m in mods:
+        def run(argv=None, _main=m.main, _name=m.__name__.rsplit(".", 1)[1]):
+            t = time.perf_counter()
+            r = _main(argv)
+            stages[_name] = time.perf_counter() - t
+            return r
+        m.main = run
+
+    def undo():
+        for m, f in saved.items():
+            m.main = f
+    return undo
+
+
+def _registered_rms(out_dir, sorted_dir, case, vox_map, fixed_shape):
+    """RMS, of the ceT1's std, of `dicom_convert --register T1`'s hrT2 on the
+    ceT1 grid against the hrT2 pulled back by the known voxel map, 5 voxels
+    in; and the identity's (the series' geometry alone)."""
+    from deep_staple_torch.data.nifti import load_nifti
+    from deep_staple_torch.tools.dicom import load_series
+    from deep_staple_torch.tools.register import resample_to_reference, series_index_affine
+
+    t1 = load_series(sorted((sorted_dir / case / "MR_t1").glob("*.dcm")))
+    t2 = load_series(sorted((sorted_dir / case / "MR_t2").glob("*.dcm")))
+    a_fix, a_mov = series_index_affine(t1.affine), series_index_affine(t2.affine)
+    truth = a_mov @ vox_map @ np.linalg.inv(a_fix)
+    sl = (slice(5, -5),) * 3
+    ref = resample_to_reference(t2.volume, a_mov, fixed_shape, a_fix, pullback_lps=truth)[sl]
+    ident = resample_to_reference(t2.volume, a_mov, fixed_shape, a_fix, pullback_lps=np.eye(4))[sl]
+    got = load_nifti(out_dir / f"{case}_mr_t2_refT1.nii.gz").get_fdata()[sl]
+    scale = float(np.std(t1.volume))
+    return _rms(got, ref) / scale, _rms(ident, ref) / scale
+
+
+def phase_dataset_tools(rec, seed):
+    """The dataset tools on a fabricated TCIA download at the size an atlas
+    registration meets: `fetch_dataset.main(["--skip-download", ...])`
+    through L1-L4 (host numpy), the port's CrossMoDa loader on the built L2;
+    `dicom_convert.main(["--register", "T1", ...])` with no --device, whose
+    pull-back estimates run on the card (`ops/registration.py`, PyTorch ops,
+    no hand-written kernel), held to the known maps as the registration
+    phase holds its default step; then card against CPU at REG_SMALL."""
+    import tempfile
+
+    from deep_staple_torch.data.crossmoda import get_crossmoda_data_load_closure
+    from deep_staple_torch.tools import (
+        build_levels, dicom_convert, fetch_dataset, register, tcia_sort, tcia_to_crossmoda,
+    )
+    from deep_staple_torch.tools.dicom import load_series
+
+    out = rec["dataset_tools"] = {}
+    failures = []
+    dev_kw, dev_argv = _no_device()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="tcia_") as tmp:
+        tmp = Path(tmp)
+        work, root = tmp / "work", tmp / "crossmoda"
+        t = time.perf_counter()
+        truths = write_tcia_tree(work / "tcia_raw", tmp / "mapping.csv", DS_CASES, REG_FIXED,
+                                 REG_MOVING, seed)
+        out["fabricate_s"] = time.perf_counter() - t
+        stages = {}
+        undo = _timed_stages((tcia_sort, dicom_convert, tcia_to_crossmoda, build_levels), stages)
+        try:
+            t = time.perf_counter()
+            fetch_dataset.main(["--skip-download", "--workdir", str(work), "--dataset-root",
+                                str(root), "--mapping", str(tmp / "mapping.csv")])
+            out["fetch_dataset_s"] = time.perf_counter() - t
+        finally:
+            undo()
+        out["stages_s"] = stages
+        levels = {lvl: len(list((root / lvl).rglob("*.nii.gz"))) for lvl in (
+            "L1_original", "L2_resampled_05mm", "L3_coarse_fixed_crop", "L4_fine_localized_crop")}
+        out["files_by_level"] = levels
+        want = [3 * DS_CASES, 3 * DS_CASES, 6 * DS_CASES, 6 * DS_CASES]
+        if list(levels.values()) != want:
+            failures.append(f"files by level {levels}, expected {want}")
+        log(f"[dataset_tools] {DS_CASES} TCIA cases (ceT1 {REG_FIXED}, hrT2 {REG_MOVING}, "
+            f"RTSTRUCT) written in {out['fabricate_s']:.1f} s; fetch_dataset --skip-download "
+            f"{out['fetch_dataset_s']:.1f} s: "
+            + ", ".join(f"{k} {v:.1f} s" for k, v in stages.items()) + f"; files {levels}")
+
+        t = time.perf_counter()
+        closure = get_crossmoda_data_load_closure(
+            base_dir=str(root), domain="source", state="l2", use_additional_data=False,
+            size=(128, 128, 128), resample=True, normalize=True, crop_3d_w_dim_range=None,
+            ensure_labeled_pairs=True, modified_3d_label_override=None, debug=False)
+        _, _, imgs, labels = closure()[:4]
+        out["loader_s"] = time.perf_counter() - t
+        fg = {k: float((v > 0).mean()) for k, v in labels.items()}
+        out["loader"] = {"images": sorted(imgs), "labels_fg": fg}
+        if sorted(imgs) != sorted(labels) or len(imgs) != DS_CASES or min(fg.values()) <= 0:
+            failures.append(f"loader: images {sorted(imgs)}, labels {fg}")
+        log(f"[dataset_tools] data/crossmoda.py on the built L2 (source domain, 128^3): "
+            f"{sorted(imgs)} in {out['loader_s']:.1f} s, label foreground {fg}")
+
+        # dicom_convert --register T1, on the card: the estimates timed.
+        est_s = []
+        real_estimate = register.estimate_pullback_lps
+
+        def timed_estimate(*a, **k):
+            t = _sync()
+            M = real_estimate(*a, **k)
+            est_s.append(_sync() - t)
+            return M
+
+        register.estimate_pullback_lps = timed_estimate
+        reset_counts()
+        try:
+            t = _sync()
+            dicom_convert.main(["--input", str(work / "tcia_sorted"), "--output",
+                                str(tmp / "registered"), "--register", "T1", *dev_argv])
+            out["register_convert_s"] = _sync() - t
+        finally:
+            register.estimate_pullback_lps = real_estimate
+        _record_path(rec, "dataset_tools", read_counts())
+        out["estimate_s"] = est_s
+        rms = {case: _registered_rms(tmp / "registered", work / "tcia_sorted", case, P, REG_FIXED)
+               for case, P in truths.items()}
+        out["rms_over_std"] = rms
+        if len(est_s) != DS_CASES or any(r >= ident / 2 for r, ident in rms.values()):
+            failures.append(f"register T1: {len(est_s)} estimates, RMS {rms}")
+        log(f"[dataset_tools] dicom_convert --register T1, no --device: "
+            f"{out['register_convert_s']:.1f} s for {DS_CASES} cases; estimate_pullback_lps on "
+            f"the card {[round(s, 2) for s in est_s]} s a case; hrT2 on the ceT1 grid against "
+            f"the known map, RMS of the std (held below half the identity's): "
+            + ", ".join(f"{c} {r:.4f} (identity {i:.4f})" for c, (r, i) in rms.items()))
+
+        # Card against CPU at REG_SMALL: the registration phase's case (its
+        # seed, the corner construction), written as DICOM.
+        small = tmp / "small"
+        vox_maps = write_tcia_tree(small / "raw", small / "mapping.csv", 1, REG_SMALL,
+                                   REG_SMALL[:2] + (REG_SMALL[2] + 5,), seed, centred=False)
+        tcia_sort.main(["--input", str(small / "raw"), "--output", str(small / "sorted")])
+        case_dir = small / "sorted" / "vs_gk_001"
+        for name, dev in (("card", dev_kw), ("cpu", "cpu")):
+            dicom_convert.convert_case(case_dir, small / name, register="T1", device=dev)
+        from deep_staple_torch.data.nifti import load_nifti
+
+        reg_c, reg_p = (load_nifti(small / k / "vs_gk_001_mr_t2_refT1.nii.gz").get_fdata()
+                        for k in ("card", "cpu"))
+        t1 = load_series(sorted((case_dir / "MR_t1").glob("*.dcm")))
+        sl = (slice(5, -5),) * 3
+        pair = _rms(reg_c[sl], reg_p[sl]) / float(np.std(t1.volume))
+        known = [_registered_rms(small / k, small / "sorted", "vs_gk_001", vox_maps["vs_gk_001"],
+                                 REG_SMALL)[0] for k in ("card", "cpu")]
+        same_rest = all(
+            np.array_equal(load_nifti(small / "card" / n).data, load_nifti(small / "cpu" / n).data)
+            for n in ("vs_gk_001_mr_t1.nii.gz", "vs_gk_001_mr_t2.nii.gz", "vs_gk_001_Label.nii.gz"))
+        out["small"] = {"pair_rms_over_std": pair, "rms_over_std_vs_known": known,
+                        "other_files_equal": same_rest}
+        if pair >= REG_PAIR_BOUND or not same_rest:
+            failures.append(f"card vs CPU: pair {pair}, other files equal {same_rest}")
+        log(f"[dataset_tools] card vs CPU at {REG_SMALL} (the registration phase's case): "
+            f"registered hrT2 {pair:.4f} std apart (tol {REG_PAIR_BOUND}); against the known "
+            f"(corner) map {known[0]:.4f} / {known[1]:.4f} std; the other files "
+            f"{'equal' if same_rest else 'DIFFER'}")
+    out["s"] = time.perf_counter() - t0
+    log(f"[dataset_tools] {out['s']:.1f} s in all")
+    if failures:
+        raise AssertionError(f"dataset_tools: {failures}")
+
+
 # ----------------------------------------------------------------- times
 
 def _time_row(kernel_fn, plain_fn, library_fn, nbytes, ops, reps=10):
@@ -2945,6 +3479,12 @@ def main(argv=None):
         phase_oracle(rec)
     if "registration" in phases:
         phase_registration(rec, args.seed)
+    if "jax_checkpoint" in phases:
+        phase_jax_checkpoint(rec, args.seed)
+    if "doctor" in phases:
+        phase_doctor(rec)
+    if "dataset_tools" in phases:
+        phase_dataset_tools(rec, args.seed)
     if "times" in phases:
         phase_times(rec, args.seed)
     rec["seconds"] = time.perf_counter() - t0

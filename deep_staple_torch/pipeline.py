@@ -11,9 +11,10 @@ The port of `deep_staple_tpu/pipeline.py`, over the same building blocks
      train_label_snapshot and persist the consensus dicts + dice summary,
   3. optionally export the consensus label variants as nnU-Net task folders.
 
-Training and consensus run on `cuda` unless `--device cpu` is given. The
-figures of `--plot-dir` come with slice 4d of the port and raise before
-training starts.
+Training and consensus run on `cuda` unless `--device cpu` is given.
+`--plot-dir` draws the consensus figures of each fold on the host
+(`consensus/figures.py`, matplotlib), where the JAX pipeline does; without
+matplotlib it raises before training starts.
 """
 
 from __future__ import annotations
@@ -34,9 +35,9 @@ def run_pipeline(config: TrainConfig, run_name=None, nnunet_dir=None,
     from .consensus.evaluate import evaluate_consensus, extract_consensus_dices
 
     if plot_dir is not None:
-        raise NotImplementedError(
-            "--plot-dir: the consensus figures (consensus/figures.py) come with slice 4d of "
-            "the port")
+        from .utils.visualization import require_plotting
+
+        require_plotting("--plot-dir", modules=("matplotlib",))
     results = normal_run(config, run_name)
 
     summary = {}
@@ -66,6 +67,12 @@ def run_pipeline(config: TrainConfig, run_name=None, nnunet_dir=None,
                 cd, Path(nnunet_dir) / f"fold{fold_idx}", task_prefix=task_prefix
             )
             summary[fold_idx]["nnunet_tasks"] = [str(w) for w in written]
+        if plot_dir is not None:
+            from .consensus.figures import save_all_figures
+
+            fold_plot_dir = Path(plot_dir) / f"fold{fold_idx}"
+            save_all_figures(cd, fold_plot_dir)
+            summary[fold_idx]["plots"] = str(fold_plot_dir)
 
     summary_path = Path(config.output_dir) / "pipeline_summary.json"
     summary_path.parent.mkdir(parents=True, exist_ok=True)
@@ -87,7 +94,7 @@ def main(argv=None):
     parser.add_argument("--task-prefix", type=int, default=555)
     parser.add_argument("--staple-iterations", type=int, default=200)
     parser.add_argument("--plot-dir", default=None,
-                        help="the consensus figures; raises until slice 4d of the port")
+                        help="write the consensus boxplot + per-case atlas-weighting figures here")
     add_preset_arg(parser)
     add_cli_args(parser)
     config, extras = parse_config(

@@ -13,8 +13,16 @@
 `save_checkpoint` / `restore_checkpoint` write and read the whole state for
 the training driver. `save_weights` writes the model and the DP vector alone,
 and `restore_weights` reads them from either kind of file: the serving path
-needs no optimizer. The JAX package's flax msgpack and orbax checkpoints are
-not read here; `models/interop.py` carries JAX weights across instead.
+needs no optimizer.
+
+The JAX package's `state.msgpack` (`deep_staple_tpu/train/checkpoint.py`,
+flax's msgpack form of its `DeepStapleState`) is read too, by the port's own
+decoder (`train/flax_msgpack.py`; no `msgpack` package) and
+`models/interop.state_from_jax`; `save_jax_checkpoint` writes one. Where a
+directory holds both, the port's `state.pt` wins. JAX's `state.orbax` (an
+orbax / tensorstore directory, which JAX prefers over its msgpack) is not
+read: restoring from a directory whose newest JAX state is orbax raises
+`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ import numpy as np
 import torch
 
 from ..core.config import TrainConfig
+from .flax_msgpack import msgpack_restore, to_bytes
 from .optim import SparseAdamState
 from .state import DeepStapleState
 
@@ -90,10 +99,31 @@ def save_checkpoint(path, state: DeepStapleState, config: TrainConfig | None = N
     _write(path, out, config)
 
 
+def _jax_state_dict(path):
+    """The JAX checkpoint's state dict, or None where `path` has `state.pt`.
+    Raises for an orbax state that the JAX package would restore."""
+    path = Path(path)
+    if (path / "state.pt").is_file():
+        return None
+    if (path / "state.orbax").exists():
+        raise NotImplementedError(
+            f"{path / 'state.orbax'}: the JAX package's orbax checkpoints are not read by the "
+            "port, which does not depend on orbax or tensorstore; the JAX package reads it, "
+            "or writes state.msgpack with checkpoint_backend 'msgpack'")
+    return msgpack_restore((path / "state.msgpack").read_bytes())
+
+
 def restore_checkpoint(path, template_state: DeepStapleState) -> DeepStapleState:
-    """Load a `save_checkpoint` file into `template_state` (its model and
-    optimizer are loaded in place, on their device) and return the restored
-    state."""
+    """Load a `save_checkpoint` file, or the JAX package's `state.msgpack`,
+    into `template_state` (its model and optimizer are loaded in place, on
+    their device) and return the restored state."""
+    jax_tree = _jax_state_dict(path)
+    if jax_tree is not None:
+        from ..models.interop import state_from_jax
+
+        model = template_state.model
+        return state_from_jax(jax_tree, model, device=next(model.parameters()).device,
+                              optimizer=template_state.optimizer)
     saved = torch.load(Path(path) / "state.pt", map_location="cpu", weights_only=True)
     if "optimizer" not in saved:
         raise ValueError(f"{path} holds weights only (save_weights); it cannot resume training")
@@ -113,7 +143,11 @@ def restore_checkpoint(path, template_state: DeepStapleState) -> DeepStapleState
 
 
 def checkpoint_exists(path) -> bool:
-    return (Path(path) / "state.pt").is_file()
+    """A checkpoint of either package: `state.pt`, or JAX's `state.msgpack`
+    or `state.orbax` (`deep_staple_tpu/train/checkpoint.py:116-117`)."""
+    path = Path(path)
+    return ((path / "state.pt").is_file() or (path / "state.msgpack").is_file()
+            or (path / "state.orbax").is_dir())
 
 
 def jax_checkpoint_only(path) -> bool:
@@ -121,7 +155,7 @@ def jax_checkpoint_only(path) -> bool:
     or `state.orbax`, `deep_staple_tpu/train/checkpoint.py:116-117`) and no
     `state.pt`."""
     path = Path(path)
-    return not checkpoint_exists(path) and (
+    return not (path / "state.pt").is_file() and (
         (path / "state.msgpack").is_file() or (path / "state.orbax").exists())
 
 
@@ -135,9 +169,34 @@ def load_config(path) -> TrainConfig:
     return TrainConfig.from_dict(json.loads((Path(path) / "config.json").read_text()))
 
 
-def restore_weights(path, model: torch.nn.Module) -> torch.Tensor:
+def save_jax_checkpoint(path, state: DeepStapleState, config: TrainConfig | None = None):
+    """Write `state` as the JAX package's checkpoint: `state.msgpack` (the
+    bytes `flax.serialization.to_bytes` gives for the JAX state,
+    `models/interop.state_to_jax`) and `config.json`."""
+    from ..models.interop import state_to_jax
+
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    tmp = path / "state.msgpack.tmp"
+    tmp.write_bytes(to_bytes(state_to_jax(state)))
+    tmp.replace(path / "state.msgpack")
+    if config is not None:
+        (path / "config.json").write_text(json.dumps(config.to_dict(), indent=2, default=str))
+
+
+def restore_weights(path, model: torch.nn.Module) -> torch.Tensor | None:
     """Load the weights into `model` (strict) and return the DP vector, whose
-    length is read from the file, as `deep_staple_tpu/serve.py:70` does."""
+    length is read from the file, as `deep_staple_tpu/serve.py:70` does;
+    from `state.pt` or the JAX package's `state.msgpack` (None where that run
+    had no data parameters)."""
+    jax_tree = _jax_state_dict(path)
+    if jax_tree is not None:
+        from ..models.interop import load_flax_variables
+
+        load_flax_variables(model, {"params": jax_tree["params"],
+                                    "batch_stats": jax_tree["batch_stats"]})
+        dp = jax_tree["dp_params"]
+        return None if dp is None else torch.from_numpy(np.array(dp, np.float32))
     saved = torch.load(Path(path) / "state.pt", map_location="cpu", weights_only=True)
     model.load_state_dict(saved["model"], strict=True)
     return saved["dp_params"]

@@ -27,9 +27,14 @@ With `use_2d_normal_to` it trains the 2D model on slices along that axis
 (the training ids are the slices of the training volumes, the learning rate
 follows the cosine warm restarts, validation scores full 3D volumes) and
 exports a snapshot of slices; with `use_mind` the network sees MIND-SSC
-features. Options of later slices raise NotImplementedError naming the
-slice: the device mesh, pipeline parallelism and multi-host runs (slice 6)
-and the figures (slice 4d).
+features. With `save_dp_figures` it draws the DP scatter every 10 batches
+and with `do_plot` the DP-sorted overview of the snapshot, where the JAX
+driver does (`utils/visualization.py`; matplotlib and PIL on the host,
+`check_supported` raises ImportError before any work where they are
+missing). It resumes from its own checkpoints (`state.pt`) and from the JAX
+package's `state.msgpack`. Options of a later slice raise
+NotImplementedError naming it: the device mesh, pipeline parallelism and
+multi-host runs (slice 6), and JAX's orbax checkpoints.
 """
 
 from __future__ import annotations
@@ -174,8 +179,9 @@ def check_supported(config: TrainConfig):
         raise NotImplementedError("multi-host training comes with slice 6 of the port (parallelism)")
     check_order(config.augment_order)
     if config.save_dp_figures or config.do_plot:
-        raise NotImplementedError(
-            "save_dp_figures and do_plot come with slice 4d of the port (figures)")
+        from ..utils.visualization import require_plotting
+
+        require_plotting("save_dp_figures and do_plot")
     check_backend(config.checkpoint_backend)
 
 
@@ -191,31 +197,33 @@ def _to_device(host_batch: dict, dev: torch.device) -> dict:
     return out
 
 
-def _refuse_jax_checkpoint(path):
-    if jax_checkpoint_only(path):
+def _refuse_orbax_checkpoint(path):
+    if jax_checkpoint_only(path) and (Path(path) / "state.orbax").exists():
         raise NotImplementedError(
-            f"{path} holds a checkpoint of the JAX package (state.msgpack or state.orbax) and "
-            "no state.pt; reading JAX checkpoints comes with slice 4e of the port")
+            f"{path} holds the JAX package's orbax checkpoint (state.orbax), which the JAX "
+            "package restores before its state.msgpack, and no state.pt; the port does not "
+            "read orbax checkpoints")
 
 
 def _resume_point(config: TrainConfig, run_name: str, fold_idx: int):
     """-> (first epoch, checkpoint path) of the JAX driver's resume rules
     (`driver.py:301-320`): an explicit checkpoint_epx re-runs that epoch from
     its checkpoint; auto_resume continues after the newest one. A checkpoint
-    directory that holds only a JAX checkpoint raises."""
+    is the port's `state.pt` or the JAX package's `state.msgpack`; a
+    directory whose checkpoint is JAX's orbax one raises."""
     epx_start = config.checkpoint_epx or 0
     ckpt_name = config.checkpoint_name or run_name
     prefix = Path(config.mdl_save_prefix)
     ckpt_path = prefix / f"{ckpt_name}_fold{fold_idx}_epx{epx_start}"
     if config.checkpoint_epx is not None:
-        _refuse_jax_checkpoint(ckpt_path)
+        _refuse_orbax_checkpoint(ckpt_path)
     if config.auto_resume and config.checkpoint_epx is None:
         pat = re.compile(rf"^{re.escape(ckpt_name)}_fold{fold_idx}_epx(\d+)$")
         newest = -1
         for d in prefix.glob(f"{ckpt_name}_fold{fold_idx}_epx*"):
             m = pat.match(d.name)
             if m:
-                _refuse_jax_checkpoint(d)
+                _refuse_orbax_checkpoint(d)
                 if checkpoint_exists(d):
                     newest = max(newest, int(m.group(1)))
         if newest >= 0:
@@ -259,7 +267,7 @@ def train_dl(run_name: str, config: TrainConfig, dataset, atlas_count=None,
     )
 
     for fold_idx in fold_range:
-        # Before the fold's data work, so that a JAX checkpoint raises first.
+        # Before the fold's data work, so that an orbax checkpoint raises first.
         epx_start, ckpt_path = _resume_point(config, run_name, fold_idx)
         if config.debug:
             num_val_images, fold_atlas_count = 2, 1
@@ -409,6 +417,25 @@ def train_dl(run_name: str, config: TrainConfig, dataset, atlas_count=None,
                 if config.use_scheduling and epx % fold_atlas_count == 0:
                     sched_steps += 1
 
+                # DP scatter figures every 10 batches (`driver.py:530-545`,
+                # reference :797-806).
+                batch_no = bstart // config.batch_size
+                if use_dp and config.save_dp_figures and batch_no % 10 == 0:
+                    from ..utils.visualization import save_parameter_figure
+
+                    train_params = state.dp_params.cpu().numpy()[train_idxs]
+                    pcc = pearson_corr(train_params, wise_dice[train_idxs][:, 1])
+                    fig_path = (
+                        Path(config.output_dir) / f"{run_name}_fold{fold_idx}_figures"
+                        / f"dp_figure_epx{epx:03d}_batch{batch_no:03d}.png"
+                    )
+                    save_parameter_figure(
+                        fig_path, run_name,
+                        f"corr. coeff. DP vs. dice(expert label, train gt): {pcc:4f}",
+                        train_params, train_params / fixed_weighting[train_idxs],
+                        wise_dice[train_idxs][:, 1],
+                    )
+
                 if config.debug:
                     break
 
@@ -492,6 +519,22 @@ def train_dl(run_name: str, config: TrainConfig, dataset, atlas_count=None,
                 from ..data.snapshot_io import save_snapshot_pth
 
                 save_snapshot_pth(snapshot_path.with_suffix(".pth"), snapshot)
+            # The DP-sorted overview (`driver.py:650-660`; the reference
+            # builds it at :1047-1084 and disables it, :1057).
+            if config.do_plot and config.save_labels and len(train_idxs) <= 150:
+                from ..utils.visualization import visualize_seg
+
+                overlay = [f"id:{d} dp:{float(w):.2f}"
+                           for d, w in zip(snapshot["d_ids"], snapshot["data_parameters"])]
+                preds = snapshot["train_predictions"]
+                visualize_seg(
+                    in_type="batch_3D", reduce_dim="W", img=snapshot["labels"],
+                    seg=4 * (preds[:, None].squeeze(1) if preds.ndim == 4 else preds),
+                    ground_truth=snapshot["modified_labels"], overlay_text=overlay,
+                    annotate_color=(255, 0, 0),  # red disturb markers
+                    frame_elements=list(snapshot["disturb_flags"]), n_per_row=70,
+                    file_path=snapshot_path.parent / "data_parameter_weighted_samples.png",
+                )
 
         results[fold_idx] = {
             "state": state,

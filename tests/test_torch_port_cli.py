@@ -115,7 +115,6 @@ def test_cli_without_cuda_raises_before_any_output(tmp_path, monkeypatch, cli):
 
 
 @pytest.mark.parametrize("cli, extra, slice_name", [
-    (pipeline_mod, ["--plot-dir", "plots"], "slice 4d"),
     (pipeline_mod, ["--dist-num-processes", "2"], "slice 6"),
     (main_mod, ["--dist_num_processes", "2"], "slice 6"),
 ])

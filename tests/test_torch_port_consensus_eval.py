@@ -132,9 +132,12 @@ def test_consensus_cli_on_cpu(tmp_path, capsys):
     assert out.is_file() and sorted(cd) == ["000l", "001l", "002l"]
     printed = capsys.readouterr().out
     assert "STAPLE consensus mean dice" in printed and "wrote" in printed
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["--snapshot", str(snap), "--output", str(out), "--device", "cpu",
-              "--plot-dir", str(tmp_path / "fig")])
+    # --plot-dir draws the paper's figures of the run (consensus/figures.py).
+    main(["--snapshot", str(snap), "--output", str(out), "--staple-iters", "30",
+          "--device", "cpu", "--plot-dir", str(tmp_path / "fig")])
+    assert sorted(p.name for p in (tmp_path / "fig").iterdir()) == [
+        "consensus_boxplot.png", "weighting_000l.png", "weighting_001l.png",
+        "weighting_002l.png"]
 
 
 def test_consensus_default_device_never_falls_back_to_cpu(tmp_path, monkeypatch):

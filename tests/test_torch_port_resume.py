@@ -133,8 +133,6 @@ def test_checkpoint_round_trip_and_backends(tmp_path):
     (dict(mesh_model_axis=2), "slice 6"),
     (dict(mesh_pipe_stages=2), "slice 6"),
     (dict(dist_num_processes=2), "slice 6"),
-    (dict(save_dp_figures=True), "slice 4d"),
-    (dict(do_plot=True), "slice 4d"),
     (dict(checkpoint_backend="orbax"), "state.pt"),
 ])
 def test_unported_options_raise(tmp_path, kw, slice_name):
@@ -211,27 +209,73 @@ def test_disturbance_follows_the_host_stream(tmp_path):
         assert not np.array_equal(dataset.modified_label_data_3d[_id], dataset.label_data_3d[_id])
 
 
-@pytest.mark.parametrize("resume, jax_file", [
-    (dict(auto_resume=True), "state.msgpack"),
-    (dict(auto_resume=True), "state.orbax"),
-    (dict(checkpoint_epx=1), "state.msgpack"),
-])
-def test_jax_checkpoint_raises_before_training(tmp_path, monkeypatch, resume, jax_file):
-    """A checkpoint directory that holds only the JAX package's checkpoint
-    (`deep_staple_tpu/train/checkpoint.py:116-117`) raises, naming it,
-    before any data work or train step; it is never skipped silently."""
+@pytest.mark.parametrize("resume", [dict(auto_resume=True), dict(checkpoint_epx=1)])
+def test_jax_checkpoint_raises_before_training(tmp_path, monkeypatch, resume):
+    """A checkpoint directory that holds the JAX package's orbax checkpoint
+    (`state.orbax`, which JAX restores before a `state.msgpack`,
+    `deep_staple_tpu/train/checkpoint.py:106-113`) and no `state.pt` raises,
+    naming it, before any data work or train step; it is never skipped."""
     generate_synthetic_crossmoda(tmp_path / "ds", num_cases=3, atlas_count=2, size=(10, 10, 10))
     ckpt = tmp_path / "models" / "jaxrun_fold0_epx1"
-    ckpt.mkdir(parents=True)
-    if jax_file == "state.orbax":
-        (ckpt / jax_file).mkdir()
-    else:
-        (ckpt / jax_file).write_bytes(b"")
+    (ckpt / "state.orbax").mkdir(parents=True)
+    (ckpt / "state.msgpack").write_bytes(b"")
     cfg = TrainConfig(epochs=2, **_base(tmp_path, save_every=1), **resume)
     dataset, ac = prepare_data(cfg)
     for name in ("precompute_sample_metrics", "make_train_step", "restore_checkpoint"):
         monkeypatch.setattr(pd, name, lambda *a, _n=name, **k: pytest.fail(f"{_n} ran"))
-    with pytest.raises(NotImplementedError, match="slice 4e") as err:
+    with pytest.raises(NotImplementedError, match="orbax") as err:
         pd.train_dl("jaxrun", cfg, dataset, ac, device="cpu")
     assert str(ckpt) in str(err.value)
     assert not (tmp_path / "out").exists()
+
+
+@pytest.mark.parametrize("resume, first_epoch", [
+    (dict(auto_resume=True), 2),
+    (dict(checkpoint_epx=1), 1),
+])
+def test_jax_msgpack_checkpoint_resumes(tmp_path, monkeypatch, resume, first_epoch):
+    """A directory with only the JAX package's `state.msgpack` (written by
+    its own `save_checkpoint`) resumes in both modes: the restored state is
+    the JAX state bit for bit, and training goes on from the epoch JAX's
+    rules give (after the newest checkpoint, or that epoch again)."""
+    from flax import serialization
+
+    from deep_staple_tpu.core.config import TrainConfig as JaxConfig
+    from deep_staple_tpu.train.checkpoint import save_checkpoint as jax_save_checkpoint
+    from deep_staple_tpu.train.driver import make_model as jax_make_model
+    from deep_staple_tpu.train.state import create_state as jax_create_state
+    from deep_staple_torch.models.interop import state_to_jax
+    from torch_port_state import flat
+
+    generate_synthetic_crossmoda(tmp_path / "ds", num_cases=3, atlas_count=2, size=(10, 10, 10))
+    cfg = TrainConfig(epochs=3, **_base(tmp_path, save_every=1), **resume)
+    dataset, ac = prepare_data(cfg)
+    jcfg = JaxConfig.from_dict(cfg.to_dict())
+    jm, _ = jax_make_model(jcfg, 2)
+    jstate, _ = jax_create_state(jm, (1, 10, 10, 10, 1), len(dataset), seed=5)
+    jstate = jstate.replace(step=jstate.step + 7, sched_steps=jstate.sched_steps + 3,
+                            dp_params=jstate.dp_params + 0.25)
+    ckpt = tmp_path / "models" / "jaxrun_fold0_epx1"
+    jax_save_checkpoint(ckpt, jstate, jcfg)
+    restored = {}
+    real_restore = pd.restore_checkpoint
+
+    def recording_restore(path, template):
+        state = real_restore(path, template)
+        restored["path"], restored["tree"] = path, state_to_jax(state)
+        return state
+
+    monkeypatch.setattr(pd, "restore_checkpoint", recording_restore)
+    res = pd.train_dl("jaxrun", cfg, dataset, ac, device="cpu")[0]
+    assert restored["path"] == ckpt
+    want = serialization.msgpack_restore((ckpt / "state.msgpack").read_bytes())
+    for key in ("params", "batch_stats"):
+        got = dict(flat(restored["tree"][key]))
+        for path, v in flat(want[key]):
+            np.testing.assert_array_equal(got[path], v, err_msg="/".join(path))
+    for key in ("dp_params", "step", "sched_steps"):
+        np.testing.assert_array_equal(restored["tree"][key], want[key])
+    epochs = [h["ref_epoch_idx"] for h in res["writer"].history if "ref_epoch_idx" in h]
+    assert epochs == list(range(first_epoch, 3))
+    per_epoch = 1  # 4 training volumes at batch 4
+    assert res["state"].step == 7 + per_epoch * len(epochs)
