@@ -5,8 +5,8 @@
 
     phases: device, build, kernels, train_kernels, consensus_kernels, serve,
             e2e, profile, train, train_e2e, train_profile, consensus,
-            train_dl, pipeline, side_paths, oracle, registration, times
-            (default: all)
+            train_dl, pipeline, side_paths, oracle, registration, jax_checkpoint,
+            doctor, dataset_tools, parallel, times (default: all)
 
 Run from the repository root. It builds every kernel of the port from the
 sources in the checkout (one nvcc per source, all at once), holds each
@@ -51,6 +51,15 @@ give it, and drives both main paths at full size:
   * the oracle: the three DP-recovery cases of
     `tests/test_torch_port_recovery.py` (10 epochs at 16^3, augmentation
     on; the third on three classes) with their thresholds;
+  * parallelism: 2 data-parallel ranks (processes sharing the card through
+    gloo) take 3 production steps at the global batch of 8 (4 rows a rank,
+    state bitwise equal across ranks after each, the first step's metrics
+    against 1 rank), `python -m deep_staple_torch.main --dist-num-processes
+    2` trains an epoch on the driver's fixture (only rank 0 writes; its
+    snapshot's consensus; DP against 1 process), the two-stage pipeline's
+    step (1 and 2 microbatches) is held against the fused step and drives
+    `train_dl` for an epoch, `serve --mesh-data 2` writes the label maps of
+    one process, and the doctor's mesh probe passes;
   * registration: `affine_register` on a 256x256x100 fixed volume and a
     256x256x120 moving one made from it by a known affine, at the default
     scales and iterations, held to `tests/test_register.py`'s bound and
@@ -88,7 +97,7 @@ WORK = REPO / "build" / "chip_smoke"
 PHASES = ("device", "build", "kernels", "train_kernels", "consensus_kernels", "serve", "e2e",
           "profile", "train", "train_e2e", "train_profile", "consensus", "train_dl", "pipeline",
           "side_paths", "oracle", "registration", "jax_checkpoint", "doctor", "dataset_tools",
-          "times")
+          "parallel", "times")
 
 # The depthwise conv's shapes at the serve CLI's defaults: size 128^3 with
 # crop (45, 95) gives 128x128x50, eval x2.0 gives 256x256x100 at the input,
@@ -236,6 +245,15 @@ PATH_KERNELS = {
     "jax_checkpoint": ("depthwise_conv3d_fwd", "depthwise_conv3d_grad_x",
                        "depthwise_conv3d_grad_w", "sep_warp_pass"),
     "dataset_tools": (),  # the registration estimate: PyTorch ops, no kernel of the port
+    **{f"parallel_{path}_rank{r}": kernels for r in range(2) for path, kernels in (
+        ("step", ("depthwise_conv3d_fwd", "depthwise_conv3d_grad_x", "depthwise_conv3d_grad_w",
+                  "sep_warp_pass")),
+        ("train_dl", ("depthwise_conv3d_fwd", "depthwise_conv3d_grad_x",
+                      "depthwise_conv3d_grad_w", "sep_warp_pass")),
+        ("serve", ("depthwise_conv3d_fwd",)))},
+    "parallel_consensus": ("staple_em_iter",),
+    "parallel_pipeline": ("depthwise_conv3d_fwd", "depthwise_conv3d_grad_x",
+                          "depthwise_conv3d_grad_w", "sep_warp_pass"),
 }
 # The device of the kernel and training phases. main() runs only with CUDA;
 # a CPU rehearsal of the control flow may import this module and set "cpu".
@@ -678,9 +696,9 @@ def _setup_serving(rec, seed):
     small = preprocess(load_nifti(inputs[0]).get_fdata(), cfg.replace(crop_3d_w_dim_range=None),
                        (64, 64, 64))
     load_flax_variables(model, variables)
-    model = model.cuda().eval()
+    model = model.to(DEV).eval()
     with torch.inference_mode():
-        img = interpolate_sample(torch.from_numpy(small)[None].cuda(), None, 2.0)[0]
+        img = interpolate_sample(torch.from_numpy(small)[None].to(DEV), None, 2.0)[0]
         logits = model(img[..., None])["out"]
         margin = float((logits[..., 1] - logits[..., 0]).median())
     variables["params"]["head"]["Conv_1"]["bias"][1] -= margin
@@ -2923,6 +2941,395 @@ def phase_doctor(rec):
         raise AssertionError(f"doctor: rc {proc.returncode}\n{proc.stdout}\n{proc.stderr[-2000:]}")
 
 
+# ----------------------------------------------------- the parallel phase
+# Data parallelism over 2 ranks (processes, one device each; on one card
+# both share it through gloo) and the two-stage pipeline, at the production
+# configuration's full width: `TrainConfig.tpu_production`, the 64 synthetic
+# samples of the train phase, a global batch of 8 at x1.5.
+PAR_RANKS, PAR_STEPS = 2, 3
+# First-step metrics of 2 ranks against 1 (`tests/test_parallel.py:64-72`).
+PAR_RTOL, PAR_ATOL = 2e-4, 1e-5
+# The pipelined step against the fused one, float32, dropout 0, the same
+# draws; production BatchNorm (async) normalizes through the running
+# statistics, so every row's logits are the fused step's. With 1
+# microbatch the calls and shapes are the fused step's: equal up to 1e-6.
+# With 2, every conv runs at batch 4, where cuBLAS and cuDNN may tile
+# otherwise: float32 rounding of the activations, averaged in the CE's sum
+# over 2.2 M voxels a row; 1e-5.
+PP_RTOL = {1: 1e-6, 2: 1e-5}
+PAR_TIMEOUT = 600
+
+
+def _warm(state):
+    """Both optimizers as after 10 steps (second moments 1e-4), as the
+    train_dl phase's card-vs-CPU run has them (TRAIN_DL_*)."""
+    import torch
+
+    for p in state.model.parameters():
+        state.optimizer.state[p] = {"step": torch.tensor(10.0), "exp_avg": torch.zeros_like(p),
+                                    "exp_avg_sq": torch.full_like(p, 1e-4)}
+    o = state.dp_opt_state
+    state.dp_opt_state = o._replace(nu=torch.full_like(o.nu, 1e-4),
+                                    count=torch.full_like(o.count, 10))
+    return state
+
+
+def _par_steps(data, seed, out_dir=None):
+    """PAR_STEPS production steps at the global batch of 8 on this rank's
+    rows (all of them without `data`). -> the first step's metrics, ms per
+    step, peak memory and launches; each step's state (parameters, buffers,
+    the DP vector) saved to `out_dir` for the cross-rank check."""
+    import torch
+
+    from deep_staple_torch.core.config import TrainConfig
+    from deep_staple_torch.train.driver import make_model
+    from deep_staple_torch.train.state import create_state
+    from deep_staple_torch.train.step import make_train_step
+
+    import torch as _t
+
+    dev = _t.device(DEV) if data is None else data.device
+    cfg = TrainConfig.tpu_production()
+    ds, cw, fixed = synthetic_dataset(DATASET_LEN, TRAIN_BASE[1:], seed, dev)
+    model, _ = make_model(cfg, 2)
+    state = create_state(model, DATASET_LEN, seed=seed, device=dev)
+    step = make_train_step(model, cfg, cw, fixed, data=data)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    order = np.random.RandomState(seed).permutation(DATASET_LEN)
+    B = TRAIN_BASE[0]
+    _sync_dev(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out = {"ms": []}
+    for k in range(PAR_STEPS):
+        idx = order[k * B:(k + 1) * B]
+        idx = idx if data is None else idx[data.rows(B)]
+        t = _sync_dev(dev)
+        state, metrics = step(state, _batch(ds, idx), cfg.lr, generator=gen)
+        out["ms"].append((_sync_dev(dev) - t) * 1e3)
+        if k == 0:
+            out["metrics"] = {n: metrics[n].float().cpu().numpy().tolist()
+                              for n in ("ce_loss", "dp_loss", "dice")}
+        if out_dir is not None:
+            np.savez(Path(out_dir) / f"step{k}_rank{data.rank}.npz", dp=state.dp_params.cpu().numpy(),
+                     **{n: v.float().cpu().numpy() for n, v in model.state_dict().items()})
+    out["launches"] = read_counts()
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else 0.0
+    return out
+
+
+def _sync_dev(dev):
+    if dev.type == "cuda":
+        return _sync()
+    return time.perf_counter()
+
+
+def parallel_rank(kind, out_json, *argv):
+    """One rank of the parallel phase, in its own process (`kind`: 'step',
+    'main' or 'serve'); writes what the phase checks to `out_json`."""
+    import torch
+
+    from deep_staple_torch.core.device import resolve_device
+
+    torch.set_num_threads(2)
+    if kind == "step":
+        from deep_staple_torch.parallel.multihost import init_distributed
+
+        rank, store, seed, out_dir = argv
+        data = init_distributed(PAR_RANKS, int(rank), f"file://{store}", device=DEV)
+        res = _par_steps(data, int(seed), out_dir)
+        torch.distributed.destroy_process_group()
+    elif kind == "main":
+        from deep_staple_torch.main import main
+        from deep_staple_torch.train import driver
+
+        create_state = driver.create_state
+        driver.create_state = lambda *a, **k: _warm(create_state(*a, **k))
+        reset_counts()
+        r = main(list(argv))[0]
+        res = {"launches": read_counts(), "dp": r["state"].dp_params.cpu().numpy().tolist(),
+               "snapshot": None if r["snapshot_path"] is None else str(r["snapshot_path"]),
+               "writes_metrics": r["writer"]._jsonl is not None,
+               "losses": [h["losses/loss_fold0"] for h in r["writer"].history
+                          if "losses/loss_fold0" in h]}
+    else:
+        from deep_staple_torch.serve import main
+
+        resolve_device(DEV)
+        reset_counts()
+        r = main(list(argv))
+        res = {"launches": read_counts(), "seconds": r.seconds, "volumes": len(r.paths)}
+    Path(out_json).write_text(json.dumps(res))
+
+
+def _launch_ranks(kind, tmp, argvs, envs=None):
+    """Start one `parallel_rank` process a rank, wait for all (each within
+    PAR_TIMEOUT); -> their results. A rank that fails fails the phase."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), PYTHONUNBUFFERED="1")
+    # The rank sees this process's device and sizes (a CPU rehearsal's too).
+    settings = {k: globals()[k] for k in ("DEV", "TRAIN_BASE", "DATASET_LEN")}
+    t = time.perf_counter()
+    procs, outs = [], []
+    for r, argv in enumerate(argvs):
+        code = (f"import chip_smoke; chip_smoke.__dict__.update({settings!r}); "
+                f"chip_smoke.parallel_rank({kind!r}, {str(tmp / f'{kind}{r}.json')!r}, *{argv!r})")
+        procs.append(subprocess.Popen([sys.executable, "-c", code], cwd=REPO,
+                                      env={**env, **(envs[r] if envs else {})},
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    try:
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=PAR_TIMEOUT)[0])
+            except subprocess.TimeoutExpired:
+                p.kill()
+                outs.append(p.communicate()[0] + f"\n[killed after {PAR_TIMEOUT} s]")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines():
+            if line.startswith(("distributed:", "served", "Pipeline", "### Log", "dice_mean")):
+                log(f"[parallel] {kind} rank {r}: {line}")
+        if p.returncode != 0:
+            raise AssertionError(f"parallel {kind} rank {r}: rc {p.returncode}\n{out[-4000:]}")
+    return [json.loads((tmp / f"{kind}{r}.json").read_text()) for r in range(len(argvs))], wall
+
+
+def _close(got, want, rtol, atol=0.0) -> float:
+    """The largest |got - want| - (atol + rtol |want|); <= 0 where within."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want) - (atol + rtol * np.abs(want))))
+
+
+def phase_parallel(rec, seed, root):
+    """Data parallelism over 2 ranks and the two-stage pipeline, at full
+    width, through the port's entry points; the doctor's mesh probe."""
+    import gzip
+    import tempfile
+
+    import torch
+
+    from deep_staple_torch.consensus.evaluate import evaluate_consensus
+    from deep_staple_torch.doctor import check_mesh
+    from deep_staple_torch.main import main as train_main
+    from deep_staple_torch.serve import serve
+    from deep_staple_torch.train import driver
+
+    out = rec["parallel"] = {}
+    dev = torch.device(DEV)
+    if dev.type == "cuda":
+        from deep_staple_torch.ops.cuda_build import build_libraries
+
+        build_libraries()  # before the ranks start, so that no rank runs nvcc
+    with tempfile.TemporaryDirectory(prefix="parallel_") as tmp_s:
+        tmp = Path(tmp_s)
+
+        # --- the data-parallel step: 1 rank here, then 2 ranks ---
+        one = _par_steps(None, seed)
+        torch.cuda.empty_cache() if dev.type == "cuda" else None
+        ranks, wall = _launch_ranks("step", tmp, [[str(r), str(tmp / "store_step"), str(seed),
+                                                   str(tmp)] for r in range(PAR_RANKS)])
+        for k in range(PAR_STEPS):
+            a, b = (np.load(tmp / f"step{k}_rank{r}.npz") for r in range(PAR_RANKS))
+            bad = [n for n in a.files if not np.array_equal(a[n], b[n])]
+            if bad:
+                raise AssertionError(f"parallel step {k}: ranks differ in {bad[:5]}")
+        gaps = {n: _close(ranks[0]["metrics"][n], one["metrics"][n], PAR_RTOL, PAR_ATOL)
+                for n in ("ce_loss", "dp_loss", "dice")}
+        out["step"] = {"one_rank": one, "ranks": ranks, "launch_wall_s": wall,
+                       "metric_excess": gaps}
+        for r, res in enumerate(ranks):
+            _record_path(rec, f"parallel_step_rank{r}", res["launches"])
+            log(f"[parallel] step rank {r}: ms per step {[round(m, 1) for m in res['ms']]} "
+                f"(1 rank: {[round(m, 1) for m in one['ms']]}), peak {res['peak_mem_gb']:.2f} GB "
+                f"(1 rank {one['peak_mem_gb']:.2f}), launches {res['launches']}")
+        log(f"[parallel] step: state bitwise equal across ranks after each of {PAR_STEPS} steps; "
+            f"first step ce {ranks[0]['metrics']['ce_loss']:.6f} / {one['metrics']['ce_loss']:.6f}, "
+            f"dp {ranks[0]['metrics']['dp_loss']:.6f} / {one['metrics']['dp_loss']:.6f} "
+            f"(2 ranks / 1), excess over rtol {PAR_RTOL} atol {PAR_ATOL}: {gaps}")
+        if max(gaps.values()) > 0:
+            raise AssertionError(f"parallel step: 2 ranks vs 1 beyond the bound: {gaps}")
+
+        # --- train_dl through main over 2 processes, and over 1 ---
+        # As the train_dl phase's comparison (TRAIN_DL_*): float32, lr 1e-4,
+        # both optimizers warm.
+        def dl_argv(tag, *extra):
+            return ["--preset", "production", *_fixture_args(root, tmp / tag), "--epochs", "1",
+                    "--batch-size", "8", "--num-val-images", "2", "--lr", "1e-4",
+                    "--compute-dtype", "float32", "--run-name", "par", *extra]
+
+        ranks, wall = _launch_ranks("main", tmp, [dl_argv(
+            "two", "--mesh-data-axis", "2", "--dist-num-processes", "2", "--dist-process-id",
+            str(r), "--dist-coordinator", f"file://{tmp / 'store_main'}")
+            for r in range(PAR_RANKS)])
+        dps = [np.asarray(r["dp"], np.float32) for r in ranks]
+        if not np.array_equal(dps[0], dps[1]):
+            raise AssertionError("parallel train_dl: the ranks' DP vectors differ")
+        if not (ranks[0]["writes_metrics"] and ranks[0]["snapshot"]
+                and not ranks[1]["writes_metrics"] and ranks[1]["snapshot"] is None):
+            raise AssertionError(f"parallel train_dl: writes {ranks}")
+        ckpts = sorted(p.name for p in (tmp / "two" / "models").iterdir())
+        if ckpts != ["par_fold0_epx0"]:
+            raise AssertionError(f"parallel train_dl: checkpoints {ckpts}")
+        for r, res in enumerate(ranks):
+            _record_path(rec, f"parallel_train_dl_rank{r}", res["launches"])
+        reset_counts()
+        evaluate_consensus(ranks[0]["snapshot"], out_path=tmp / "consensus.pkl", device=DEV)
+        _record_path(rec, "parallel_consensus", read_counts())
+        create_state = driver.create_state
+        driver.create_state = lambda *a, **k: _warm(create_state(*a, **k))
+        try:
+            t = time.perf_counter()
+            single = train_main(dl_argv("one"))[0]
+            single_s = time.perf_counter() - t
+        finally:
+            driver.create_state = create_state
+        dp1 = single["state"].dp_params.cpu().numpy()
+        loss1 = [h["losses/loss_fold0"] for h in single["writer"].history
+                 if "losses/loss_fold0" in h]
+        dp_gap = float(np.abs(dps[0] - dp1).max() / np.abs(dp1).max())
+        loss_gap = abs(ranks[0]["losses"][0] - loss1[0]) / abs(loss1[0])
+        out["train_dl"] = {"launch_wall_s": wall, "one_process_s": single_s, "dp_gap": dp_gap,
+                           "loss_gap": loss_gap, "ranks": ranks}
+        log(f"[parallel] train_dl over 2 processes: {wall:.1f} s from launch to exit (1 process "
+            f"{single_s:.1f} s); DP bitwise equal across ranks; only rank 0 wrote; DP {dp_gap:.2e} "
+            f"of its largest from 1 process (bound {TRAIN_DL_DP_RTOL}), epoch loss {loss_gap:.2e} "
+            f"(bound {TRAIN_DL_LOSS_RTOL}); K4 on the snapshot's consensus")
+        if dp_gap > TRAIN_DL_DP_RTOL or loss_gap > TRAIN_DL_LOSS_RTOL:
+            raise AssertionError(f"parallel train_dl vs 1 process: DP {dp_gap}, loss {loss_gap}")
+        del single
+        torch.cuda.empty_cache() if dev.type == "cuda" else None
+
+        # --- the pipeline: the pipelined step against the fused one ---
+        out["pipeline"] = _par_pipeline(rec, seed, root, tmp)
+
+        # --- serving over 2 ranks, against one process ---
+        inputs, _, _, ckpts_serve = _setup_serving(rec, seed)
+        ckpt = ckpts_serve["float32"]
+        port = _free_port()
+        args = ["--checkpoint", str(ckpt), "--inputs", *inputs, "--batch-size", "4",
+                "--size", *map(str, SERVE_SIZE), "--mesh-data", "2",
+                "--output-dir", str(tmp / "serve2"),
+                *([] if DEV == "cuda" else ["--device", DEV])]
+        envs = [dict(RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE="2", LOCAL_WORLD_SIZE="2",
+                     MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)) for r in range(PAR_RANKS)]
+        ranks, wall = _launch_ranks("serve", tmp, [args] * PAR_RANKS, envs)
+        for r, res in enumerate(ranks):
+            _record_path(rec, f"parallel_serve_rank{r}", res["launches"])
+        maps = {}
+        for bs in (2, 4):
+            serve(ckpt, inputs, tmp / f"serve1_b{bs}", batch_size=bs, size=SERVE_SIZE, device=DEV)
+            maps[bs] = _seg_maps(tmp / f"serve1_b{bs}")
+        two = _seg_maps(tmp / "serve2")
+        if list(two) != list(maps[2]) or any(two[k] != maps[2][k] for k in two):
+            raise AssertionError("parallel serve: label maps differ from one process at batch 2")
+        # One process at batch 4 runs its convs at another batch size, where
+        # cuBLAS and cuDNN may round otherwise: near-tie voxels may flip.
+        diff4 = int(sum(np.count_nonzero(np.frombuffer(two[k], np.uint8)
+                                         != np.frombuffer(maps[4][k], np.uint8)) for k in two))
+        vps = ranks[0]["volumes"] / ranks[0]["seconds"]
+        out["serve"] = {"launch_wall_s": wall, "volumes_per_s": vps, "ranks": ranks,
+                        "bytes_differing_from_batch_4": diff4,
+                        "bytes": int(sum(len(v) for v in two.values()))}
+        log(f"[parallel] serve --mesh-data 2: {ranks[0]['volumes']} volumes, {vps:.3f} volumes/s "
+            f"(rank 0's loop, write-out included; {wall:.1f} s launch to exit); label maps "
+            f"byte-equal to one process at the ranks' batch of 2; against one process at batch "
+            f"4, {diff4} of {out['serve']['bytes']} bytes differ")
+        shutil.rmtree(WORK, ignore_errors=True)
+
+        # --- the doctor's mesh probe ---
+        t = time.perf_counter()
+        if not check_mesh(300):
+            raise AssertionError("doctor: the 2-rank gloo mesh probe failed")
+        out["doctor_mesh_s"] = time.perf_counter() - t
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _seg_maps(out_dir) -> dict:
+    import gzip
+
+    return {p.name: gzip.decompress(p.read_bytes()) for p in sorted(Path(out_dir).glob("*_seg.nii.gz"))}
+
+
+def _par_pipeline(rec, seed, root, tmp):
+    """The pipelined step (n_micro 1 and 2, the driver's placement) against
+    the fused step on one batch, float32, dropout 0, the same draws: the
+    first step's losses compared, the second timed; then train_dl with
+    mesh_pipe_stages=2 for 1 epoch."""
+    import torch
+
+    from deep_staple_torch.core.config import TrainConfig
+    from deep_staple_torch.ops.augment import AugmentParams, draw_augment
+    from deep_staple_torch.parallel.pipeline import make_pp_train_step, stage_devices
+    from deep_staple_torch.train import driver
+    from deep_staple_torch.train.driver import make_model
+    from deep_staple_torch.train.prepare import prepare_data
+    from deep_staple_torch.train.state import create_state
+    from deep_staple_torch.train.step import make_train_step
+
+    res = {}
+    devices = stage_devices(DEV)
+    log(f"[parallel] pipeline stages on {[str(d) for d in devices]}")
+    cfg = TrainConfig.tpu_production(compute_dtype="float32")
+    ds, cw, fixed = synthetic_dataset(DATASET_LEN, TRAIN_BASE[1:], seed, DEV)
+    batch = _batch(ds, np.random.RandomState(seed).permutation(DATASET_LEN)[:TRAIN_BASE[0]])
+    for n_micro in (1, 2):
+        row = {}
+        for name in ("fused", "pipelined"):
+            model, _ = make_model(cfg, 2)
+            model.aspp.dropout_rate = 0.0
+            state = create_state(model, DATASET_LEN, seed=seed, device=DEV)
+            step = (make_train_step(model, cfg, cw, fixed) if name == "fused" else
+                    make_pp_train_step(model, cfg, cw, fixed, n_micro=n_micro, devices=devices))
+            gen = torch.Generator(device=DEV).manual_seed(seed)
+            draws = draw_augment(gen, TRAIN_BASE, AugmentParams(), 1.5)
+            reset_counts()
+            state, m = step(state, batch, cfg.lr, generator=gen, draws=draws)
+            row[name] = {"ce_loss": float(m["ce_loss"]), "dp_loss": float(m["dp_loss"]),
+                         "launches": read_counts()}
+            t = _sync_dev(torch.device(DEV))
+            step(state, batch, cfg.lr, generator=gen, draws=draws)
+            row[name]["ms"] = (_sync_dev(torch.device(DEV)) - t) * 1e3
+            del state, model, step
+        rel = {k: abs(row["pipelined"][k] - row["fused"][k]) / abs(row["fused"][k])
+               for k in ("ce_loss", "dp_loss")}
+        row["rel_gap"] = rel
+        res[f"n_micro_{n_micro}"] = row
+        log(f"[parallel] pipeline n_micro {n_micro}: ce {row['pipelined']['ce_loss']:.7f} / "
+            f"{row['fused']['ce_loss']:.7f}, dp {row['pipelined']['dp_loss']:.7f} / "
+            f"{row['fused']['dp_loss']:.7f} (pipelined / fused), relative gaps {rel} (bound "
+            f"{PP_RTOL[n_micro]}); second step ms {row['pipelined']['ms']:.1f} / "
+            f"{row['fused']['ms']:.1f}")
+        if max(rel.values()) > PP_RTOL[n_micro]:
+            raise AssertionError(f"pipeline n_micro {n_micro} vs fused: {rel}")
+    del ds
+    cfg = _dl_config(root, output_dir=str(tmp / "pp_out"), mdl_save_prefix=str(tmp / "pp_models"),
+                     epochs=1, batch_size=8, num_val_images=2, mesh_pipe_stages=2)
+    reset_counts()
+    t = time.perf_counter()
+    r = driver.train_dl("pp", cfg, *prepare_data(cfg), device=DEV)[0]
+    res["train_dl_s"] = time.perf_counter() - t
+    counts = read_counts()
+    _record_path(rec, "parallel_pipeline", counts)
+    losses = [h["losses/loss_fold0"] for h in r["writer"].history if "losses/loss_fold0" in h]
+    if not (np.isfinite(losses).all() and r["snapshot_path"]):
+        raise AssertionError(f"pipeline train_dl: losses {losses}, snapshot {r['snapshot_path']}")
+    log(f"[parallel] train_dl with mesh_pipe_stages=2: 1 epoch in {res['train_dl_s']:.1f} s, "
+        f"loss {losses}, launches {counts}")
+    return res
+
+
 # The TCIA tree of the dataset-tools phase: cases of a ceT1 series at the
 # registration phase's fixed size and an hrT2 series at its moving size over
 # the same field of view, rotated and shifted (`_registration_pair`), with an
@@ -3464,7 +3871,7 @@ def main(argv=None):
     if "consensus" in phases:
         phase_consensus(rec, args.seed, *cons)
     del cons
-    if {"train_dl", "pipeline", "side_paths"} & set(phases):
+    if {"train_dl", "pipeline", "side_paths", "parallel"} & set(phases):
         import tempfile
 
         with tempfile.TemporaryDirectory(prefix="dl_fixture_") as tmp:
@@ -3475,6 +3882,8 @@ def main(argv=None):
                 phase_pipeline(rec, Path(tmp), args.seed)
             if "side_paths" in phases:
                 phase_side_paths(rec, args.seed, Path(tmp))
+            if "parallel" in phases:
+                phase_parallel(rec, args.seed, Path(tmp))
     if "oracle" in phases:
         phase_oracle(rec)
     if "registration" in phases:

@@ -114,9 +114,40 @@ class TrainConfig:
                 f"bn_mode {self.bn_mode!r} (expected 'batch', 'async' or 'slab')"
             )
         if self.mesh_pipe_stages not in (1, 2):
-            raise ValueError(f"mesh_pipe_stages {self.mesh_pipe_stages!r} (expected 1 or 2)")
+            raise ValueError(
+                f"mesh_pipe_stages {self.mesh_pipe_stages!r} (the model has "
+                "exactly one natural stage cut — him+lom | aspp+head — so "
+                "only 1 or 2 stages exist)"
+            )
         if self.pipe_microbatches < 1:
             raise ValueError(f"pipe_microbatches {self.pipe_microbatches!r} < 1")
+        if self.mesh_pipe_stages > 1:
+            # The JAX package's checks (`deep_staple_tpu/core/config.py:218-242`).
+            if (self.mesh_data_axis > 1 or self.mesh_space_axis > 1
+                    or self.mesh_model_axis > 1):
+                raise ValueError(
+                    "mesh_pipe_stages > 1 is exclusive with the mesh_* axes "
+                    "(pipeline stages are placed on explicit devices, not a "
+                    "GSPMD mesh)"
+                )
+            if self.use_2d_normal_to is not None:
+                raise ValueError(
+                    "mesh_pipe_stages > 1 supports the 3D model only (the 2D "
+                    "torchvision-style model has no him/lom|aspp/head cut)"
+                )
+            if self.batch_size % self.pipe_microbatches:
+                raise ValueError(
+                    f"batch_size {self.batch_size} not divisible by "
+                    f"pipe_microbatches {self.pipe_microbatches}"
+                )
+            if (self.data_param_mode == DataParamMode.INSTANCE_PARAMS
+                    and not self.use_ool_dp_loss):
+                raise ValueError(
+                    "mesh_pipe_stages > 1 requires the out-of-line DP "
+                    "schedule (use_ool_dp_loss=True): the non-OOL DP loss "
+                    "backprops its batch-coupled weight normalization into "
+                    "the model, which does not decompose over microbatches"
+                )
 
     def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)

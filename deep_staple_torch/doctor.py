@@ -16,23 +16,29 @@ Checks:
   4. the kernel build: `ops/cuda_build.build_libraries` builds or finds the
      three `csrc/*.cu` for `sm_90a` in `build/kernels/`, and each library
      loads;
-  5. optional: the native C++ NIfTI library (`data/native_io.py`) and
+  5. the mesh probe, the counterpart of the JAX doctor's virtual-mesh
+     check (`deep_staple_tpu/doctor.py:147-167`): two gloo ranks on the CPU,
+     started in a subprocess, all-reduce a tensor and check the sum, which
+     is what the port's data parallelism (`parallel/`) needs of
+     `torch.distributed`;
+  6. optional: the native C++ NIfTI library (`data/native_io.py`) and
      matplotlib / PIL (the figures); these only warn.
 
 The JAX doctor's compile-cache check has no counterpart (nvcc's libraries in
-`build/kernels/` play that part, `core/cache.py` is not ported by design);
-its virtual-mesh check waits for the port's parallel modes (slice 6).
+`build/kernels/` play that part, `core/cache.py` is not ported by design).
 
-Exit code 0 only when the versions, the card, nvcc and the kernel build all
-pass. Without a card it exits 1 and says that only the `--device cpu` paths
+Exit code 0 only when the versions, the card, nvcc, the kernel build and
+the mesh probe all pass. Without a card it exits 1 and says that only the `--device cpu` paths
 are usable: the port's entry points raise without CUDA (`core/device.py`).
 """
 
 from __future__ import annotations
 
+import datetime
 import os
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 _REPO = Path(__file__).resolve().parent.parent
@@ -147,6 +153,49 @@ def check_kernel_build(timeout: int) -> bool:
     return _report("kernel build (sm_90a)", OK, f"build/kernels/: {_tagged(out, 'BUILT')}")
 
 
+def _gloo_rank(rank: int, store: str) -> None:
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}", world_size=2, rank=rank,
+                            timeout=datetime.timedelta(seconds=60))
+    t = torch.tensor([float(rank + 1)])
+    dist.all_reduce(t)
+    dist.destroy_process_group()
+    if float(t) != 3.0:
+        raise SystemExit(f"rank {rank}: all_reduce gave {float(t)}, not 3.0")
+
+
+def gloo_probe() -> None:
+    """Two gloo ranks (spawned processes) all-reduce 1 and 2; exits non-zero
+    unless both see 3."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="doctor_gloo_") as tmp:
+        procs = [ctx.Process(target=_gloo_rank, args=(r, os.path.join(tmp, "store")), daemon=True)
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0, 0]:
+        raise SystemExit(f"gloo ranks exited with {codes}")
+    print("MESH 2 gloo ranks on the CPU: all_reduce 1 + 2 = 3")
+
+
+def check_mesh(timeout: int) -> bool:
+    status, out = _subprocess_probe(
+        "from deep_staple_torch.doctor import gloo_probe; gloo_probe()", timeout)
+    if status == "timeout":
+        return _report("2-rank gloo process group", FAIL, f"hung >{timeout}s")
+    if status == "error":
+        return _report("2-rank gloo process group", FAIL, _last_line(out))
+    return _report("2-rank gloo process group", OK, _tagged(out, "MESH"))
+
+
 def check_native() -> bool:
     from .data import native_io
 
@@ -191,13 +240,14 @@ def main(argv=None) -> int:
     check_power_limit(args.timeout)
     nvcc = check_nvcc(args.timeout)
     build = check_kernel_build(args.timeout)
+    mesh = check_mesh(args.timeout)
     check_native()
     check_figures()
     if not card:
         print("summary: no CUDA card; only the --device cpu paths are usable"
               + ("" if good else ", and the versions above FAIL"))
         return 1
-    good &= nvcc and build
+    good &= nvcc and build and mesh
     print("summary: " + ("all checks passed" if good else "FAILURES above"))
     return 0 if good else 1
 

@@ -11,8 +11,13 @@ Usage:
     python -m deep_staple_torch.main --do-sweep true
     python -m deep_staple_torch.main --device cpu ...
 
-Multi-process runs (`--dist-num-processes` above 1) come with slice 6 of the
-port and raise.
+Data parallelism over N processes, one rank a device
+(`--mesh-data-axis N`, `parallel/`): start the command N times with
+`--dist-num-processes N --dist-process-id r --dist-coordinator
+host:port` (or `tcp://host:port`, `file:///shared/path`), or under
+`torchrun --nproc-per-node N`, whose environment fills the flags left unset.
+Rank r runs on `cuda:(local rank mod visible cards)` (`--device cpu`: the
+CPU); ranks that share a card talk through gloo, else NCCL.
 """
 
 from __future__ import annotations
@@ -22,9 +27,11 @@ import itertools
 import sys
 import time
 
+import torch
+
 from .core.config import TrainConfig, add_cli_args, add_preset_arg, apply_preset
 from .core.device import resolve_device
-from .train.driver import train_dl
+from .train.driver import check_supported, train_dl
 from .train.prepare import prepare_data
 
 # Grid sweep spec, mirroring sweep_config_dict (`main_deep_staple.py:1099-1130`).
@@ -37,9 +44,11 @@ SWEEP_METRIC = "scores/val_dice_mean_tumour_fold0"  # goal: maximize
 
 def _train(run_name: str, config: TrainConfig):
     """Resolve the run's device (raising without CUDA unless config.device
-    is "cpu") before any data is read, then prepare the data and train."""
+    is "cpu") and check its options before any data is read, then prepare
+    the data and train."""
     dev = resolve_device(config.device)
     print(f"device: {dev}")
+    check_supported(config)
     dataset, atlas_count = prepare_data(config)
     return train_dl(run_name, config, dataset, atlas_count, device=dev)
 
@@ -125,14 +134,23 @@ def wandb_sweep_run(config: TrainConfig, wandb=None):
 
 
 def maybe_init_distributed(config: TrainConfig):
-    """The JAX package joins a multi-host job here; the port's runs are one
-    process on one card until slice 6. Returns False; raises for more than
-    one process."""
-    if config.dist_num_processes and config.dist_num_processes > 1:
-        raise NotImplementedError(
-            "multi-process runs (--dist-num-processes > 1) come with slice 6 of the port "
-            "(parallelism)")
-    return False
+    """Join the job's process group when configured; no-op otherwise
+    (`deep_staple_tpu/main.py:117-140`). -> whether it joined.
+
+    The job is `--dist-num-processes` N > 1, or else torchrun's
+    `WORLD_SIZE`; each rank's id and the coordinator come from their flags
+    or torchrun's environment (`parallel/multihost.py::launch_settings`).
+    Runs before any data is read; the rank's device is then the current
+    CUDA device, or the CPU with `--device cpu`."""
+    import os
+
+    n = config.dist_num_processes or int(os.environ.get("WORLD_SIZE") or 1)
+    if n <= 1:
+        return False
+    from .parallel.multihost import init_distributed
+
+    init_distributed(n, config.dist_process_id, config.dist_coordinator, device=config.device)
+    return True
 
 
 def parse_config(parser: argparse.ArgumentParser, argv, extra: tuple = ()):
@@ -158,12 +176,16 @@ def main(argv=None):
     add_preset_arg(parser)
     add_cli_args(parser)
     config, extras = parse_config(parser, argv, ("run_name",))
-    maybe_init_distributed(config)
-    if config.do_sweep:
-        if config.wandb_mode != "disabled":
-            return wandb_sweep_run(config)
-        return sweep_run(config)
-    return normal_run(config, extras["run_name"])
+    joined = maybe_init_distributed(config)
+    try:
+        if config.do_sweep:
+            if config.wandb_mode != "disabled":
+                return wandb_sweep_run(config)
+            return sweep_run(config)
+        return normal_run(config, extras["run_name"])
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

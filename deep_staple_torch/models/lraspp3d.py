@@ -215,6 +215,7 @@ class ASPP3D(nn.Module):
                  bn_mode: str = "batch"):
         super().__init__()
         self.dropout_rate = dropout_rate
+        self.data = None  # the data group of a data-parallel step
         self.n_rates = len(atrous_rates)
         kw = dict(act="relu", dtype=dtype, bn_mode=bn_mode)
         self.ConvBN_0 = ConvBN(in_features, out_channels, kernel=1, **kw)
@@ -243,8 +244,15 @@ class ASPP3D(nn.Module):
             generator = torch.Generator(device=generator.device)
             generator.set_state(state)
         # Drawn on the generator's device: a CPU generator gives the same mask
-        # to a model on any device.
-        keep = torch.rand(y.shape, generator=generator, device=generator.device) >= self.dropout_rate
+        # to a model on any device. With a data group, the global batch's
+        # mask, of which this rank keeps its rows: the same mask whatever the
+        # number of ranks.
+        shape = tuple(y.shape)
+        if self.data is not None:
+            shape = (shape[0] * self.data.size,) + shape[1:]
+        keep = torch.rand(shape, generator=generator, device=generator.device) >= self.dropout_rate
+        if self.data is not None:
+            keep = keep[self.data.rows(shape[0])]
         keep = keep.to(y.device, non_blocking=True)
         return torch.where(keep, y / (1.0 - self.dropout_rate), 0.0)
 
@@ -324,23 +332,34 @@ class MobileNetLRASPP3D(nn.Module):
     def forward(self, x, train: bool = False, generator: Optional[torch.Generator] = None):
         """x (B, D, H, W, C_in) -> {"out": float32 logits}; `generator` feeds
         the ASPP dropout in train mode."""
-        in_spatial = tuple(x.shape[1:4])
-        x = x.to(self.dtype or x.dtype).contiguous()
+        high, low = self.stage0(x, train)
+        return {"out": self.stage1(high, low, tuple(x.shape[1:4]), train, generator)}
+
+    def _segment(self, train: bool):
         if train and self.use_checkpointing and torch.is_grad_enabled():
-            seg = remat.checkpoint
-        else:
-            def seg(fn, *args):
-                return fn(*args)
+            return remat.checkpoint
+        return lambda fn, *args: fn(*args)
+
+    def stage0(self, x, train: bool = False):
+        """him + lom, the pipeline's first stage (`parallel/pipeline.py`):
+        x -> (high, low) in the compute dtype."""
+        x = x.to(self.dtype or x.dtype).contiguous()
+        seg = self._segment(train)
         high = seg(self.him, x, train)
-        low = seg(self.lom, high, train)
+        return high, seg(self.lom, high, train)
+
+    def stage1(self, high, low, out_spatial, train: bool = False,
+               generator: Optional[torch.Generator] = None):
+        """aspp + head + the final upsample to `out_spatial`, the pipeline's
+        second stage: (high, low) -> float32 logits (B, *out_spatial, C)."""
+        seg = self._segment(train)
         low = seg(self.aspp, low, train, generator)
         y = seg(self.head, low, high, train)
         # Final trilinear upsample to the input size, in float32 (reference :232);
         # a float64 model stays in float64.
         y = y.to(torch.promote_types(y.dtype, torch.float32))
-        y = _to_ndhwc(resize_nd(_to_ncdhw(y), in_spatial, mode="linear",
-                                align_corners=False))
-        return {"out": y}
+        return _to_ndhwc(resize_nd(_to_ncdhw(y), tuple(out_spatial), mode="linear",
+                                   align_corners=False))
 
 
 class MobileNetASPP3D(MobileNetLRASPP3D):

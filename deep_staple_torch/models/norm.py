@@ -24,7 +24,10 @@ to the input dtype. Train mode, per `bn_mode`:
     the running statistics from them, seeded like 'async'.
 
 Statistics are float32 means of x and x^2 over every axis but the last,
-var = E[x^2] - E[x]^2, momentum 0.9. The running statistics are updated in
+var = E[x^2] - E[x]^2, momentum 0.9. With a data group (`data`, set by
+`parallel/mesh.py::attach_data_group`) the means are over the global batch
+of every rank, as the JAX step's are under GSPMD: the ranks' means are
+averaged, through an all-reduce that carries the gradient in 'batch' mode. The running statistics are updated in
 place, once per forward: a checkpointed recomputation (`models/remat.py`)
 makes no update and normalizes as the first run did.
 """
@@ -39,12 +42,16 @@ from . import remat
 SLAB_STRIDE = 4
 
 
-def _moments(x):
+def _moments(x, data=None):
     """E[x] and E[x^2] over every axis but the last, in float32 (float64 for
-    a float64 x)."""
+    a float64 x); over every rank's rows with a data group (equal row counts,
+    so the mean of the ranks' means)."""
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
     axes = tuple(range(x.dim() - 1))
-    return xf.mean(axes), (xf * xf).mean(axes)
+    mean, mean2 = xf.mean(axes), (xf * xf).mean(axes)
+    if data is None:
+        return mean, mean2
+    return data.mean(torch.stack([mean, mean2])).unbind(0)
 
 
 class BatchNorm(nn.Module):
@@ -58,6 +65,7 @@ class BatchNorm(nn.Module):
         if bn_mode not in ("batch", "async", "slab"):
             raise ValueError(f"bn_mode {bn_mode!r} (expected 'batch', 'async' or 'slab')")
         self.bn_mode = bn_mode
+        self.data = None  # the data group of a data-parallel step
         self.momentum = momentum
         self.epsilon = epsilon
         self.scale = nn.Parameter(torch.ones(num_features))
@@ -88,7 +96,7 @@ class BatchNorm(nn.Module):
         if not train:
             return self._affine(x, self.mean, self.var)
         if self.bn_mode == "batch":
-            mean, mean2 = _moments(x)
+            mean, mean2 = _moments(x, self.data)
             var = torch.clamp(mean2 - mean * mean, min=0.0)
             self._update(mean.detach(), var.detach(), seeded=False)
             return self._affine(x, mean, var)
@@ -98,12 +106,12 @@ class BatchNorm(nn.Module):
             mean, var = remat.keep(lambda: (self.mean.clone(), self.var.clone()))
             y = self._affine(x, mean, var)
             with torch.no_grad():
-                b_mean, b_mean2 = _moments(x)
+                b_mean, b_mean2 = _moments(x, self.data)
             self._update(b_mean, b_mean2 - b_mean * b_mean, seeded=True)
             return y
         xs = x[:, ::SLAB_STRIDE] if x.dim() == 5 and x.shape[1] >= SLAB_STRIDE else x
         with torch.no_grad():
-            mean, mean2 = _moments(xs)
+            mean, mean2 = _moments(xs, self.data)
             var = mean2 - mean * mean
         self._update(mean, var, seeded=True)
         return self._affine(x, mean, var)

@@ -24,6 +24,7 @@ import json
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from .core.config import TrainConfig, add_cli_args, add_preset_arg
 from .main import maybe_init_distributed, normal_run, parse_config
@@ -74,6 +75,8 @@ def run_pipeline(config: TrainConfig, run_name=None, nnunet_dir=None,
             save_all_figures(cd, fold_plot_dir)
             summary[fold_idx]["plots"] = str(fold_plot_dir)
 
+    if torch.distributed.is_initialized() and torch.distributed.get_rank() != 0:
+        return summary  # rank 0 wrote the snapshot and writes the summary
     summary_path = Path(config.output_dir) / "pipeline_summary.json"
     summary_path.parent.mkdir(parents=True, exist_ok=True)
     summary_path.write_text(json.dumps(summary, indent=2))
@@ -99,8 +102,12 @@ def main(argv=None):
     add_cli_args(parser)
     config, extras = parse_config(
         parser, argv, ("run_name", "nnunet_dir", "task_prefix", "staple_iterations", "plot_dir"))
-    maybe_init_distributed(config)
-    return run_pipeline(config, **extras)
+    joined = maybe_init_distributed(config)
+    try:
+        return run_pipeline(config, **extras)
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -17,8 +17,16 @@ host -> device from pinned memory without blocking, and the prediction comes
 back with one `.cpu()` per batch, which is also the only synchronisation.
 Peak host memory is two batches, whatever the number of inputs.
 
-Runs on `cuda` unless `--device cpu` is given; multi-GPU serving
-(`--mesh-data`, `--mesh-space`) comes with a later slice.
+Runs on `cuda` unless `--device cpu` is given.
+
+`--mesh-data N` serves on N ranks, one a device: start N processes under
+`torchrun --nproc-per-node N` (its `RANK`, `WORLD_SIZE`, `MASTER_ADDR` and
+`MASTER_PORT`; JAX's serve CLI has no launch flags either). Each batch's
+rows split over the ranks (the batch size divides by N), each rank loads
+and runs its own, and rank 0 gathers the label maps and writes them: eval
+uses BatchNorm's running statistics, so no collective enters the forward,
+and the maps are those of one process run at the ranks' batch size.
+`--mesh-space` (the volume's H axis over devices) comes with slice 6b.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ from .core.device import resolve_device
 from .data.crossmoda import _prep_volume
 from .data.nifti import load_nifti, save_nifti
 from .data.np_ops import resize_nd_np
+from .parallel.multihost import init_distributed
 from .train.checkpoint import load_config, restore_weights
 from .train.driver import make_model
 from .train.step import make_eval_step
@@ -77,8 +86,13 @@ def serve(checkpoint_dir, input_paths, output_dir, batch_size: int = 4,
           size=(128, 128, 128), mesh_data: int = 1, mesh_space: int = 1,
           device=None) -> ServeResult:
     size = tuple(size)
-    if mesh_data > 1 or mesh_space > 1:
-        raise NotImplementedError("multi-GPU serving comes with a later slice of the port")
+    if mesh_space > 1:
+        raise NotImplementedError(
+            "--mesh-space (the volume's H axis over devices) comes with slice 6b of the port")
+    data = None
+    if mesh_data > 1:
+        data = _join_serving_ranks(mesh_data, batch_size, device)
+        device = data.device
     device = resolve_device(device)
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
@@ -92,17 +106,19 @@ def serve(checkpoint_dir, input_paths, output_dir, batch_size: int = 4,
         print("served 0 volumes (no inputs)")
         return ServeResult([], 0.0, 0, [])
     pin = device.type == "cuda"
+    # This rank's rows of each batch: all of them on one process.
+    rows = range(batch_size) if data is None else range(batch_size)[data.rows(batch_size)]
 
     def _load_chunk(paths):
-        vols, metas = [], []
-        for p in paths:
-            img = load_nifti(p)
-            data = img.get_fdata()
-            vols.append(preprocess(data, config, size))
-            metas.append((Path(p), data.shape, img.affine))
-        pad = batch_size - len(vols)
-        batch = torch.from_numpy(np.stack(vols + [vols[-1]] * pad))
-        return (batch.pin_memory() if pin else batch), metas
+        # The batch is padded with copies of its last volume.
+        idx = [min(i, len(paths) - 1) for i in rows]
+        loaded = {}
+        for j in dict.fromkeys(idx):
+            img = load_nifti(paths[j])
+            vol = img.get_fdata()
+            loaded[j] = (preprocess(vol, config, size), (Path(paths[j]), vol.shape, img.affine))
+        batch = torch.from_numpy(np.stack([loaded[j][0] for j in idx]))
+        return (batch.pin_memory() if pin else batch), [loaded[j][1] for j in idx]
 
     write_output = _make_output_writer(output_dir, config, size, eval_scale, output_space)
     out_paths, batch_ms = [], []
@@ -118,17 +134,54 @@ def serve(checkpoint_dir, input_paths, output_dir, batch_size: int = 4,
             image = host_batch.to(device, non_blocking=True)
             batch = {"image": image, "label": torch.zeros(image.shape, dtype=torch.int32, device=device)}
             pred, _ = eval_step(batch)
-            pred_np = pred[: len(chunk_metas)].cpu().numpy()  # the batch's one sync
+            n_real = len(path_chunks[i])
+            if data is not None:
+                pred, chunk_metas = _gather_batch(pred, chunk_metas, path_chunks[i], data)
+            pred_np = pred[:n_real].cpu().numpy()  # the batch's one sync
             batch_ms.append((time.perf_counter() - tb) * 1e3)
-            for p, m in zip(pred_np, chunk_metas):
+            if data is not None and data.rank != 0:
+                continue  # rank 0 writes
+            for p, m in zip(pred_np, chunk_metas[:n_real]):
                 voxels += int(np.prod(p.shape))
                 out_paths.append(write_output(p, m))
     dt = time.perf_counter() - t0
     n = len(out_paths)
-    print(f"served {n} volumes in {dt:.2f}s on {device} ({len(path_chunks)} executions, "
+    ranks = "" if data is None else f", rank {data.rank} of {data.size}"
+    print(f"served {n} volumes in {dt:.2f}s on {device}{ranks} ({len(path_chunks)} executions, "
           f"{n / max(dt, 1e-9):.3f} volumes/s, {voxels / max(dt, 1e-9) / 1e6:.0f} M voxel/s "
           f"incl. write-out)")
     return ServeResult(out_paths, dt, len(path_chunks), batch_ms)
+
+
+def _join_serving_ranks(mesh_data: int, batch_size: int, device):
+    """The data group of `--mesh-data N`: N processes from torchrun's
+    environment (`deep_staple_tpu/serve.py:93-106`'s checks)."""
+    import os
+
+    if batch_size % mesh_data:
+        raise ValueError(f"--batch-size {batch_size} must be divisible by --mesh-data {mesh_data}")
+    world = int(os.environ.get("WORLD_SIZE") or 1)
+    if world != mesh_data:
+        raise ValueError(
+            f"--mesh-data {mesh_data} serves on {mesh_data} processes, one a device, and this "
+            f"run has {world}: launch it with torchrun --nproc-per-node {mesh_data} "
+            "(RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT in the environment)")
+    if torch.distributed.is_initialized():
+        from .parallel.mesh import make_data_group
+
+        return make_data_group(resolve_device(device))
+    return init_distributed(device=device)
+
+
+def _gather_batch(pred, metas, paths, data):
+    """Every rank's rows of the batch's predictions, with each row's input
+    shape and affine (-> the batch's metas in row order, on every rank)."""
+    info = torch.tensor([[*m[1], *np.asarray(m[2], np.float64).ravel()] for m in metas],
+                        dtype=torch.float64, device=pred.device)
+    pred, info = data.gather_rows(pred), data.gather_rows(info).cpu().numpy()
+    metas = [(Path(paths[min(i, len(paths) - 1)]), tuple(int(v) for v in row[:3]),
+              row[3:].reshape(4, 4)) for i, row in enumerate(info)]
+    return pred, metas
 
 
 def _make_output_writer(output_dir, config, size, eval_scale, output_space):
@@ -186,14 +239,19 @@ def main(argv=None):
     ap.add_argument("--output-space", choices=("input", "eval"), default="input")
     ap.add_argument("--size", type=int, nargs=3, default=(128, 128, 128),
                     help="canonical training volume size (L4 default)")
-    ap.add_argument("--mesh-data", type=int, default=1, help="multi-GPU: not in this slice")
-    ap.add_argument("--mesh-space", type=int, default=1, help="multi-GPU: not in this slice")
+    ap.add_argument("--mesh-data", type=int, default=1,
+                    help="serve on N ranks, one a device, under torchrun --nproc-per-node N")
+    ap.add_argument("--mesh-space", type=int, default=1, help="multi-GPU H sharding: slice 6b")
     ap.add_argument("--device", default=None,
                     help="'cuda' (default; raises without CUDA) or 'cpu'")
     args = ap.parse_args(argv)
-    return serve(args.checkpoint, args.inputs, args.output_dir, args.batch_size,
-                 args.eval_scale, args.output_space, tuple(args.size), args.mesh_data,
-                 args.mesh_space, device=args.device)
+    try:
+        return serve(args.checkpoint, args.inputs, args.output_dir, args.batch_size,
+                     args.eval_scale, args.output_space, tuple(args.size), args.mesh_data,
+                     args.mesh_space, device=args.device)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -32,9 +32,30 @@ and with `do_plot` the DP-sorted overview of the snapshot, where the JAX
 driver does (`utils/visualization.py`; matplotlib and PIL on the host,
 `check_supported` raises ImportError before any work where they are
 missing). It resumes from its own checkpoints (`state.pt`) and from the JAX
-package's `state.msgpack`. Options of a later slice raise
-NotImplementedError naming it: the device mesh, pipeline parallelism and
-multi-host runs (slice 6), and JAX's orbax checkpoints.
+package's `state.msgpack`.
+
+Data parallelism (`mesh_data_axis` N > 1, `parallel/`): N processes, one
+rank a device, in one process group (`main.maybe_init_distributed`). Every
+rank runs the whole loop with the same seeds, so the split, the epoch
+permutations and the augmentation's draws are the same on each; a batch
+keeps a multiple of N rows, each rank loads its own contiguous block
+(`host_shard_indices`) and keeps its rows of the global draws, and the step
+reduces over the ranks (`train/step.py`), so that its metrics are the
+global batch's and the state stays bitwise equal on every rank. The ranks
+check that they resume alike, take rank 0's state, and wait for each other
+before the first step of each step variant. Validation runs on every rank;
+only rank 0 writes metrics, checkpoints, figures and the snapshot
+(`driver.py:150-164`, `:322-337`, `:468-518`, `:596`, `:634`).
+
+Pipeline parallelism (`mesh_pipe_stages=2`, one process): the two-stage
+GPipe step (`parallel/pipeline.py`) with stage i on `cuda:(i mod visible
+cards)` (both on one card here) or on the CPU, `pipe_microbatches` a batch
+(the batch trimmed to a multiple), the slab warm-up step piped too; after
+each epoch the model is placed back on stage 0's device for validation,
+checkpoints and the snapshot (`driver.py:281-298`, `:378-417`, `:473-481`).
+
+Options of a later slice raise NotImplementedError naming it: spatial and
+tensor sharding (slice 6b), and JAX's orbax checkpoints.
 """
 
 from __future__ import annotations
@@ -45,6 +66,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.config import DataParamMode, TrainConfig
 from ..core.determinism import reset_determinism
@@ -53,6 +75,10 @@ from ..models import LRASPPMobileNetV3Large2D, MobileNetLRASPP3D
 from ..ops.augment import AugmentDraws, AugmentParams, check_order, draw_augment
 from ..ops.dice import batch_dice_over_all, batch_dice_per_class, dice_from_int_labels
 from ..ops.resample import interpolate_sample
+from ..parallel.mesh import make_data_group
+from ..parallel.multihost import (
+    check_resume_agrees, coordination_barrier, host_shard_indices, replicate_to_mesh,
+)
 from ..utils.logging import MetricWriter, get_global_idx, log_class_dices, log_data_parameter_stats
 from .checkpoint import (
     check_backend, checkpoint_exists, jax_checkpoint_only, restore_checkpoint, save_checkpoint,
@@ -60,7 +86,7 @@ from .checkpoint import (
 from .optim import cosine_warm_restarts_lr, exp_lr
 from .snapshot import export_train_label_snapshot
 from .state import create_state
-from .step import make_eval_step, make_train_step, resolve_augment_order
+from .step import make_eval_step, make_train_step, rank_draws, resolve_augment_order
 
 
 def dp_in_target_pos_ratio(dp_values, disturbed_idxs, target_pos: str = "min") -> float:
@@ -165,18 +191,43 @@ def precompute_sample_metrics(dataset, train_idxs, num_classes: int, use_2d: boo
     return wise_dice, gt_num, bn_count, class_weights.astype(np.float32), fixed_weighting.astype(np.float32)
 
 
+def _world_size() -> int:
+    """The processes of this run: the default process group's size, or 1."""
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
 def check_supported(config: TrainConfig):
-    """Raise NotImplementedError for an option that a later slice brings."""
-    if (config.mesh_data_axis > 1 or config.mesh_space_axis > 1 or config.mesh_model_axis > 1
-            or config.mesh_pipe_stages > 1):
+    """Raise for options that cannot run as configured, before any work:
+    NotImplementedError for an option that a later slice brings, ValueError
+    for a data axis that does not match the processes."""
+    if config.mesh_space_axis > 1 or config.mesh_model_axis > 1:
         raise NotImplementedError(
-            "the device mesh and pipeline parallelism (mesh_* > 1, mesh_pipe_stages > 1) come "
-            "with slice 6 of the port (parallelism)")
-    multi = (config.dist_num_processes or 1) > 1 or (
-        torch.distributed.is_available() and torch.distributed.is_initialized()
-        and torch.distributed.get_world_size() > 1)
-    if multi:
-        raise NotImplementedError("multi-host training comes with slice 6 of the port (parallelism)")
+            "spatial and tensor sharding (mesh_space_axis, mesh_model_axis > 1) come with "
+            "slice 6b of the port (parallel/spatial.py, parallel/tensor.py)")
+    nproc = _world_size()
+    if (config.dist_num_processes or 1) > 1 and nproc == 1:
+        raise ValueError(
+            f"dist_num_processes={config.dist_num_processes} but this process joined no process "
+            "group: call main.maybe_init_distributed(config) first")
+    if nproc == 1 and config.mesh_data_axis > 1:
+        n = config.mesh_data_axis
+        raise ValueError(
+            f"mesh_data_axis={n} runs one process a rank: launch {n} processes with "
+            f"--dist-num-processes {n} (each with --dist-process-id and --dist-coordinator, or "
+            f"under torchrun --nproc-per-node {n})")
+    if nproc > 1:
+        if config.mesh_pipe_stages > 1:
+            raise ValueError(
+                "mesh_pipe_stages > 1 is single-process only (stages are placed on explicit "
+                "local devices)")
+        if config.mesh_data_axis % nproc:
+            raise ValueError(
+                f"mesh_data_axis={config.mesh_data_axis} must divide over {nproc} processes "
+                "(equal batch rows per host)")
+        if config.mesh_data_axis != nproc:
+            raise ValueError(
+                f"mesh_data_axis={config.mesh_data_axis} over {nproc} processes: the port runs "
+                "one device a rank, so the data axis is the number of processes")
     check_order(config.augment_order)
     if config.save_dp_figures or config.do_plot:
         from ..utils.visualization import require_plotting
@@ -249,11 +300,13 @@ def train_dl(run_name: str, config: TrainConfig, dataset, atlas_count=None,
     "mean_step_time", "writer"}} as the JAX driver does."""
     check_supported(config)
     dev = resolve_device(device)
+    data = make_data_group(dev)
+    is_main = data is None or data.rank == 0
     reset_determinism(config.seed)
     atlas_count = atlas_count if atlas_count is not None else config.atlas_count
     writer = writer or MetricWriter(
         jsonl_path=str(Path(config.output_dir) / f"{run_name}_metrics.jsonl")
-        if config.log_jsonl else None,
+        if config.log_jsonl and is_main else None,
     )
 
     use_dp = config.data_param_mode == DataParamMode.INSTANCE_PARAMS
@@ -334,9 +387,18 @@ def train_dl(run_name: str, config: TrainConfig, dataset, atlas_count=None,
         )
 
         epx = max(epx_start - 1, 0)  # snapshot dir name if the loop is empty
+        check_resume_agrees(epx_start, checkpoint_exists(ckpt_path), config.mdl_save_prefix, data)
         if checkpoint_exists(ckpt_path):
             print(f"Restoring checkpoint from {ckpt_path}")
             state = restore_checkpoint(ckpt_path, state)
+        state = replicate_to_mesh(state, data)
+        pp_devices = None
+        if config.mesh_pipe_stages > 1:
+            from ..parallel.pipeline import make_pp_train_step, place_model, stage_devices
+
+            pp_devices = stage_devices(dev)
+            print(f"Pipeline parallelism: {config.mesh_pipe_stages} stages x "
+                  f"{config.pipe_microbatches} microbatches on {[str(d) for d in pp_devices]}")
 
         pre_interp = dataset.pre_interpolation_factor
         effective_order = resolve_augment_order(config.augment_order, num_classes)
@@ -348,10 +410,17 @@ def train_dl(run_name: str, config: TrainConfig, dataset, atlas_count=None,
             config = config.replace(augment_order=effective_order)
         check_order(config.augment_order)
         augment_params = AugmentParams()
-        train_step = make_train_step(
-            model, config, class_weights, fixed_weighting, augment_params,
-            pre_interpolation_factor=pre_interp,
-        )
+
+        def build_step(step_model):
+            if pp_devices is not None:
+                return make_pp_train_step(
+                    step_model, config, class_weights, fixed_weighting, augment_params,
+                    pre_interpolation_factor=pre_interp, n_micro=config.pipe_microbatches,
+                    devices=pp_devices)
+            return make_train_step(step_model, config, class_weights, fixed_weighting,
+                                   augment_params, pre_interpolation_factor=pre_interp, data=data)
+
+        train_step = build_step(model)
         eval_step = make_eval_step(model, config, num_classes)
         # Async-BN warmup: the first bn_warmup_epochs run the slab-BN model,
         # which shares every parameter and buffer with `model`
@@ -359,10 +428,7 @@ def train_dl(run_name: str, config: TrainConfig, dataset, atlas_count=None,
         warmup_step, warmup_epochs = None, 0
         if config.bn_mode == "async" and config.bn_warmup_epochs > 0 and not use_2d:
             warmup_epochs = config.bn_warmup_epochs
-            warmup_step = make_train_step(
-                make_warmup_model(model, config, num_classes), config, class_weights,
-                fixed_weighting, augment_params, pre_interpolation_factor=pre_interp,
-            )
+            warmup_step = build_step(make_warmup_model(model, config, num_classes))
 
         gen = torch.Generator().manual_seed(config.seed + 1000 * fold_idx)
         if draws_on_host:
@@ -373,6 +439,7 @@ def train_dl(run_name: str, config: TrainConfig, dataset, atlas_count=None,
         t_start = time.time()
         sched_steps = int(state.sched_steps)
         step_times = []
+        started_steps = set()
 
         for epx in range(epx_start, config.epochs):
             global_idx = get_global_idx(fold_idx, epx, config.epochs)
@@ -397,15 +464,27 @@ def train_dl(run_name: str, config: TrainConfig, dataset, atlas_count=None,
 
             for bstart in range(0, len(perm), config.batch_size):
                 bidx = perm[bstart : bstart + config.batch_size]
-                host_batch = dataset.sample_batch(bidx)
-                draws = draw_augment(gen, host_batch["image"].shape, augment_params, pre_interp,
-                                     noise_generator=dev_gen)
+                # A multiple of the data axis, or of the microbatches.
+                split = config.mesh_data_axis if data is not None else (
+                    config.pipe_microbatches if pp_devices is not None else 1)
+                bidx = bidx[: len(bidx) // split * split]
+                if len(bidx) == 0:
+                    continue
+                host_batch = dataset.sample_batch(
+                    bidx if data is None else host_shard_indices(bidx, data.size, data.rank))
+                # The global batch's draws; each rank keeps its rows.
+                draws = draw_augment(gen, (len(bidx),) + host_batch["image"].shape[1:],
+                                     augment_params, pre_interp, noise_generator=dev_gen)
+                draws = rank_draws(draws, data)
                 batch = _to_device(host_batch, dev)
                 draws = AugmentDraws(*_to_device(draws._asdict(), dev).values())
 
                 lr = (cosine_warm_restarts_lr(config.lr, sched_steps) if use_2d
                       else exp_lr(config.lr, sched_steps))
                 step_fn = warmup_step if epx < warmup_epochs and warmup_step is not None else train_step
+                if data is not None and id(step_fn) not in started_steps:
+                    coordination_barrier(data)
+                started_steps.add(id(step_fn))
                 t0 = time.time()
                 state, metrics = step_fn(state, batch, lr, generator=dev_gen, draws=draws)
                 if pending_metrics is not None:
@@ -420,7 +499,7 @@ def train_dl(run_name: str, config: TrainConfig, dataset, atlas_count=None,
                 # DP scatter figures every 10 batches (`driver.py:530-545`,
                 # reference :797-806).
                 batch_no = bstart // config.batch_size
-                if use_dp and config.save_dp_figures and batch_no % 10 == 0:
+                if use_dp and config.save_dp_figures and is_main and batch_no % 10 == 0:
                     from ..utils.visualization import save_parameter_figure
 
                     train_params = state.dp_params.cpu().numpy()[train_idxs]
@@ -441,6 +520,9 @@ def train_dl(run_name: str, config: TrainConfig, dataset, atlas_count=None,
 
             if pending_metrics is not None:
                 _consume(pending_metrics)
+            if pp_devices is not None:
+                # Validation, checkpoints and the snapshot run on one device.
+                place_model(state, pp_devices[0])
 
             if prof is not None:
                 if dev.type == "cuda":
@@ -480,7 +562,7 @@ def train_dl(run_name: str, config: TrainConfig, dataset, atlas_count=None,
                     writer, f"data_parameters/iter_stats_fold{fold_idx}", global_idx, dp_host
                 )
 
-            if (epx % config.save_every == 0) or (epx + 1 == config.epochs):
+            if is_main and ((epx % config.save_every == 0) or (epx + 1 == config.epochs)):
                 _path = Path(config.mdl_save_prefix) / f"{run_name}_fold{fold_idx}_epx{epx}"
                 save_checkpoint(_path, state, config, backend=config.checkpoint_backend)
 
@@ -507,7 +589,7 @@ def train_dl(run_name: str, config: TrainConfig, dataset, atlas_count=None,
 
         # --- snapshot export (reference :963-1045) ---
         snapshot_path = None
-        if use_dp:
+        if use_dp and is_main:
             snapshot_path = (
                 Path(config.output_dir) / f"{run_name}_fold{fold_idx}_epx{epx}" / "train_label_snapshot.npz"
             )

@@ -9,6 +9,13 @@
   * risk regularization -w * |pred > 0| / numel (:750-757).
 
 Logits are channels-last (B, *spatial, C) float32.
+
+With a data group (`parallel/mesh.py`) each rank holds its rows of the
+global batch, and a loss returns this rank's share: the shares sum over the
+ranks to the loss of the global batch, and the sum of the ranks' gradients
+is its gradient. The CE's denominator sum(w[t]) and the DP weights' batch
+mean are taken over the global batch (the mean through an all-reduce that
+carries its gradient to every rank's DP rows).
 """
 
 from __future__ import annotations
@@ -24,10 +31,12 @@ def _nll(logits, targets):
     return -torch.gather(logp, -1, targets.long().unsqueeze(-1)).squeeze(-1)
 
 
-def weighted_cross_entropy(logits, targets, class_weights):
-    """sum(w[t] * nll) / sum(w[t]), as nn.CrossEntropyLoss(weight=w)."""
+def weighted_cross_entropy(logits, targets, class_weights, data=None):
+    """sum(w[t] * nll) / sum(w[t]), as nn.CrossEntropyLoss(weight=w); with a
+    data group, this rank's numerator over the global denominator."""
     w = class_weights[targets.long()]
-    return (_nll(logits, targets) * w).sum() / w.sum()
+    den = w.sum() if data is None else data.sum(w.sum())
+    return (_nll(logits, targets) * w).sum() / den
 
 
 def per_sample_cross_entropy(logits, targets):
@@ -36,20 +45,22 @@ def per_sample_cross_entropy(logits, targets):
     return nll.reshape(nll.shape[0], -1).mean(dim=-1)
 
 
-def dp_weights_from_params(bare_params_batch, fixed_weighting_batch=None):
-    """sigmoid -> batch-mean normalize -> optional fixed-weighting divide."""
+def dp_weights_from_params(bare_params_batch, fixed_weighting_batch=None, data=None):
+    """sigmoid -> batch-mean normalize (over the global batch with a data
+    group) -> optional fixed-weighting divide."""
     w = torch.sigmoid(bare_params_batch)
-    w = w / w.mean()
+    w = w / (w.mean() if data is None else data.mean(w.mean()))
     if fixed_weighting_batch is not None:
         w = w / fixed_weighting_batch
     return w
 
 
 def dp_loss_fn(dp_logits, targets, bare_params_batch, fixed_weighting_batch=None,
-               use_risk_regularization: bool = True):
-    """The full data-parameter loss, sum-reduced (reference :738-759)."""
+               use_risk_regularization: bool = True, data=None):
+    """The full data-parameter loss, sum-reduced (reference :738-759); with a
+    data group, this rank's rows' share of it."""
     ce = per_sample_cross_entropy(dp_logits, targets)
-    w = dp_weights_from_params(bare_params_batch, fixed_weighting_batch)
+    w = dp_weights_from_params(bare_params_batch, fixed_weighting_batch, data)
     loss = (ce * w).sum()
     if use_risk_regularization:
         pred = dp_logits.detach().argmax(dim=-1)

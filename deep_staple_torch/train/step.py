@@ -20,6 +20,17 @@ With `use_mind` the network sees the 12 MIND-SSC channels of the image
 (`_featurize`, `step.py:41-55`); with `use_2d_normal_to` the batch holds 2D
 slices for the 2D model, and the eval step slices full 3D volumes along that
 axis and restacks the prediction (`step.py:251-285`).
+
+With a data group (`parallel/mesh.py`) each rank runs the step on its rows
+of the global batch and the step keeps the JAX step's global-batch
+semantics (GSPMD's collectives, `parallel/mesh.py:1-16`): the augmentation
+and dropout draws are the global batch's, of which a rank keeps its rows;
+BatchNorm moments, the CE denominator and the DP weights' mean are global
+(`models/norm.py`, `train/losses.py`); the model's gradients are summed over
+the ranks as one flat buffer before AdamW, and the dense DP gradient with
+the touched rows before SparseAdam, so that every rank takes the same
+update; the losses are summed and the Dice rows gathered. The separable
+warp (K1) warps each rank's own rows, as JAX's `shard_map` does.
 """
 
 from __future__ import annotations
@@ -27,11 +38,12 @@ from __future__ import annotations
 import torch
 
 from ..core.config import DataParamMode, TrainConfig
-from ..ops.augment import AugmentParams, augment_sample_pair, check_order, draw_augment
+from ..ops.augment import AugmentDraws, AugmentParams, augment_sample_pair, check_order, draw_augment
 from ..ops.dice import dice_from_int_labels
 from ..ops.mind import mindssc
 from ..ops.resample import interpolate_sample
 from ..ops.stacking import make_2d_stack_from_3d, make_3d_from_2d_stack
+from ..parallel.mesh import attach_data_group
 from .losses import dp_loss_fn, weighted_cross_entropy
 from .optim import set_lr, sparse_adam_update
 from .state import DeepStapleState
@@ -70,9 +82,16 @@ def _swap_buffers(model, buffers):
     return held
 
 
+def rank_draws(draws: AugmentDraws, data) -> AugmentDraws:
+    """This rank's rows of the global batch's augmentation draws."""
+    if data is None:
+        return draws
+    return AugmentDraws(*(d[data.rows(d.shape[0])] for d in draws))
+
+
 def make_train_step(model, config: TrainConfig, class_weights, fixed_weighting,
                     augment_params: AugmentParams = AugmentParams(),
-                    pre_interpolation_factor: float = 1.5, augment: bool = True):
+                    pre_interpolation_factor: float = 1.5, augment: bool = True, data=None):
     """Build `train_step(state, batch, lr, generator=None, draws=None)
     -> (state, metrics)`.
 
@@ -84,6 +103,11 @@ def make_train_step(model, config: TrainConfig, class_weights, fixed_weighting,
     feeds the augmentation and dropout; `draws` (`ops.augment.AugmentDraws`)
     replaces the augmentation's draws. metrics: "loss", "ce_loss",
     "dp_loss" (with data parameters), "dice" (B, num_classes), as tensors.
+
+    `data` (a `parallel.mesh.DataGroup`) makes it a data-parallel step: the
+    batch holds this rank's rows of the global batch, `draws` (if given) its
+    rows of the global draws (`rank_draws`), `generator` is seeded alike on
+    every rank, and the metrics are the global batch's (dice (B_global, C)).
     """
     use_dp = config.data_param_mode == DataParamMode.INSTANCE_PARAMS
     use_2d = config.use_2d_normal_to is not None
@@ -102,15 +126,23 @@ def make_train_step(model, config: TrainConfig, class_weights, fixed_weighting,
     class_weights = torch.as_tensor(class_weights, dtype=torch.float32).to(device)
     fixed_weighting = torch.as_tensor(fixed_weighting, dtype=torch.float32).to(device)
     async_bn = getattr(model, "bn_mode", "batch") == "async"
+    attach_data_group(model, data)
+
+    def total(share):
+        return share if data is None else data.sum(share)
 
     def forward(x, generator):
         return model(x, train=True, generator=generator)["out"]
 
     def dp_objective(dp_logits, mod, dp_vec, idxs):
         fixed = fixed_weighting[idxs] if config.use_fixed_weighting else None
-        return dp_loss_fn(dp_logits, mod, dp_vec[idxs], fixed, config.use_risk_regularization)
+        return dp_loss_fn(dp_logits, mod, dp_vec[idxs], fixed, config.use_risk_regularization,
+                          data)
 
     def apply_grads(state, params, grads, lr):
+        if data is not None:
+            flat = data.sum(torch.cat([g.reshape(-1) for g in grads]))
+            grads = [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads]), grads)]
         for p, g in zip(params, grads):
             p.grad = g
         set_lr(state.optimizer, lr)
@@ -122,7 +154,9 @@ def make_train_step(model, config: TrainConfig, class_weights, fixed_weighting,
         img, lbl, mod = batch["image"], batch["label"], batch["modified_label"]
         if augment:
             if draws is None:
-                draws = draw_augment(generator, img.shape, augment_params, pre_interpolation_factor)
+                shape = (img.shape[0] * (1 if data is None else data.size),) + tuple(img.shape[1:])
+                draws = rank_draws(draw_augment(generator, shape, augment_params,
+                                                pre_interpolation_factor), data)
             img, lbl, mod, _ = augment_sample_pair(img, lbl, mod, draws, augment_params,
                                                    pre_interpolation_factor, order, use_2d)
         idxs = batch["dataset_idx"].long()
@@ -140,15 +174,15 @@ def make_train_step(model, config: TrainConfig, class_weights, fixed_weighting,
             apply_grads(state, params, grads, lr)
             logits = logits.detach()
             with torch.no_grad():
-                ce_loss = weighted_cross_entropy(logits, mod, class_weights)
-            metrics["dp_loss"] = dp_loss.detach()
+                ce_loss = total(weighted_cross_entropy(logits, mod, class_weights, data))
+            metrics["dp_loss"] = total(dp_loss.detach())
         else:
             strict_async = use_dp and config.ool_mode == "strict" and async_bn
             start = {n: b.clone() for n, b in model.named_buffers()} if strict_async else None
             logits = forward(x, generator)
-            ce_loss = weighted_cross_entropy(logits, mod, class_weights)
+            ce_loss = weighted_cross_entropy(logits, mod, class_weights, data)
             apply_grads(state, params, torch.autograd.grad(ce_loss, params), lr)
-            logits, ce_loss = logits.detach(), ce_loss.detach()
+            logits, ce_loss = logits.detach(), total(ce_loss.detach())
             if use_dp:
                 if config.ool_mode == "strict":
                     with torch.no_grad():
@@ -164,17 +198,27 @@ def make_train_step(model, config: TrainConfig, class_weights, fixed_weighting,
                 with torch.enable_grad():
                     dp_loss = dp_objective(dp_logits, mod, dp_vec, idxs)
                 (dp_grads,) = torch.autograd.grad(dp_loss, [dp_vec])
-                metrics["dp_loss"] = dp_loss.detach()
+                metrics["dp_loss"] = total(dp_loss.detach())
 
         dp_params, dp_opt = state.dp_params, state.dp_opt_state
         if use_dp and not config.override_embedding_weights:
-            touched = torch.zeros_like(dp_params, dtype=torch.bool)
-            touched[idxs] = True
+            if data is None:
+                touched = torch.zeros_like(dp_params, dtype=torch.bool)
+                touched[idxs] = True
+            else:
+                # The dense gradient and the touched rows of every rank, in
+                # one reduction.
+                hit = torch.zeros_like(dp_grads)
+                hit[idxs] = 1.0
+                both = data.sum(torch.cat([dp_grads, hit]))
+                dp_grads, touched = both[: len(hit)], both[len(hit):] > 0
             dp_params, dp_opt = sparse_adam_update(dp_params, dp_grads, dp_opt, touched,
                                                    config.lr_inst_param)
 
         with torch.no_grad():
             metrics["dice"] = dice_from_int_labels(logits.argmax(dim=-1), lbl, num_classes)
+            if data is not None:
+                metrics["dice"] = data.gather_rows(metrics["dice"])
         metrics["ce_loss"] = ce_loss
         metrics["loss"] = metrics.get("dp_loss", ce_loss)
         state.step += 1

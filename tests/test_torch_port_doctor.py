@@ -4,7 +4,8 @@
 On a machine without a CUDA card (as the CPU test runs), the doctor exits 1
 and says that only the `--device cpu` paths are usable; every device probe
 runs in a subprocess with `--timeout`. Its exit status otherwise: 0 only
-when the card, nvcc and the kernel build pass.
+when the card, nvcc, the kernel build and the mesh probe (two gloo ranks on
+the CPU) pass.
 """
 
 import os
@@ -17,8 +18,8 @@ from deep_staple_torch import doctor
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHECKS = ("python", "torch / CUDA build", "numpy", "scipy", "CUDA card",
-          "nvidia-smi name, power limit", "nvcc", "kernel build (sm_90a)", "native C++ lib",
-          "matplotlib / PIL (figures)")
+          "nvidia-smi name, power limit", "nvcc", "kernel build (sm_90a)",
+          "2-rank gloo process group", "native C++ lib", "matplotlib / PIL (figures)")
 
 
 def test_doctor_cli_without_a_card():
@@ -52,6 +53,30 @@ def test_doctor_exit_status(monkeypatch, capsys, card, nvcc, build, rc, summary)
     monkeypatch.setattr(doctor, "check_power_limit", lambda t: True)
     monkeypatch.setattr(doctor, "check_nvcc", probe("nvcc", nvcc))
     monkeypatch.setattr(doctor, "check_kernel_build", probe("kernel build (sm_90a)", build))
+    monkeypatch.setattr(doctor, "check_mesh", probe("2-rank gloo process group", True))
     monkeypatch.setattr(doctor, "check_native", lambda: True)
     assert doctor.main(["--timeout", "5"]) == rc
     assert capsys.readouterr().out.splitlines()[-1] == summary
+
+
+def test_doctor_mesh_probe(capsys):
+    """The mesh probe (the JAX doctor's virtual-mesh check,
+    `deep_staple_tpu/doctor.py:147-167`): two gloo ranks on the CPU
+    all-reduce 1 and 2 and both see 3."""
+    assert doctor.check_mesh(120)
+    out = capsys.readouterr().out
+    assert "[ok]" in out and "all_reduce 1 + 2 = 3" in out
+
+
+def test_doctor_fails_when_the_mesh_probe_fails(monkeypatch, capsys):
+    monkeypatch.setattr(doctor, "check_card", lambda t: doctor._report("CUDA card", "ok"))
+    monkeypatch.setattr(doctor, "check_power_limit", lambda t: True)
+    monkeypatch.setattr(doctor, "check_nvcc", lambda t: doctor._report("nvcc", "ok"))
+    monkeypatch.setattr(doctor, "check_kernel_build",
+                        lambda t: doctor._report("kernel build (sm_90a)", "ok"))
+    monkeypatch.setattr(doctor, "_subprocess_probe", lambda code, t: ("timeout", ""))
+    monkeypatch.setattr(doctor, "check_native", lambda: True)
+    assert doctor.main(["--timeout", "5"]) == 1
+    out = capsys.readouterr().out
+    assert "2-rank gloo process group" in out and "hung >5s" in out
+    assert out.splitlines()[-1] == "summary: FAILURES above"

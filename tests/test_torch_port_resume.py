@@ -128,16 +128,27 @@ def test_checkpoint_round_trip_and_backends(tmp_path):
 
 
 @pytest.mark.parametrize("kw, slice_name", [
-    (dict(mesh_data_axis=2), "slice 6"),
-    (dict(mesh_space_axis=2), "slice 6"),
-    (dict(mesh_model_axis=2), "slice 6"),
-    (dict(mesh_pipe_stages=2), "slice 6"),
-    (dict(dist_num_processes=2), "slice 6"),
+    (dict(mesh_space_axis=2), "slice 6b"),
+    (dict(mesh_model_axis=2), "slice 6b"),
     (dict(checkpoint_backend="orbax"), "state.pt"),
 ])
 def test_unported_options_raise(tmp_path, kw, slice_name):
     cfg = TrainConfig(output_dir=str(tmp_path / "out"), **kw)
     with pytest.raises(NotImplementedError, match=slice_name):
+        pd.train_dl("x", cfg, None, device="cpu")
+    assert not (tmp_path / "out").exists()
+
+
+@pytest.mark.parametrize("kw, match", [
+    (dict(mesh_data_axis=2), "launch 2 processes with --dist-num-processes 2"),
+    (dict(dist_num_processes=2), "maybe_init_distributed"),
+])
+def test_parallel_options_need_their_processes(tmp_path, kw, match):
+    """Data parallelism runs one process a rank: in a single process, a data
+    axis above 1 or a process count without a process group raises before
+    any work."""
+    cfg = TrainConfig(output_dir=str(tmp_path / "out"), **kw)
+    with pytest.raises(ValueError, match=match):
         pd.train_dl("x", cfg, None, device="cpu")
     assert not (tmp_path / "out").exists()
 
