@@ -59,7 +59,14 @@ give it, and drives both main paths at full size:
     snapshot's consensus; DP against 1 process), the two-stage pipeline's
     step (1 and 2 microbatches) is held against the fused step and drives
     `train_dl` for an epoch, `serve --mesh-data 2` writes the label maps of
-    one process, and the doctor's mesh probe passes;
+    one process, and the doctor's mesh probe passes; tensor parallelism: 4
+    ranks on a grid of data 2 x model 2 take the same 3 production steps
+    (each rank half the rows and half the channels of every sharded conv;
+    replicated state bitwise equal on every rank and sharded state on the
+    data ranks of a model index, the first step's metrics against 1 rank),
+    and `main` trains an epoch over 4 processes on the same grid; the
+    depthwise kernels are checked at every channel slice of a model axis of
+    2, 4 and 8, and timed at 2 and 4;
   * registration: `affine_register` on a 256x256x100 fixed volume and a
     256x256x120 moving one made from it by a known affine, at the default
     scales and iterations, held to `tests/test_register.py`'s bound and
@@ -120,6 +127,20 @@ TRAIN_DW = (
     + [((8, 48, 48, 19, c), 1) for c in (192, 384, 384)]
 )
 DATASET_LEN = 64
+# Tensor parallelism (`parallel/tensor.py`) gives the depthwise kernels a
+# rank's channel slice, C = mid / M: the training shapes at M = 2, 4, 8 (C
+# 4-192; at C = 4, 12, 18, 36 a bfloat16 voxel is no multiple of 16 bytes,
+# and at 18, 36 a float32 one), checked; at M = 2 and 4, timed.
+TP_SPLITS, TP_TIMED = (2, 4, 8), (2, 4)
+
+
+def tp_dw(M):
+    """The ten depthwise calls of one training forward (batch 8) on a rank
+    of a model axis of M."""
+    return [((B, D, H, W, C // M), s) for (B, D, H, W, C), s in TRAIN_DW]
+
+
+TP_DW = sorted({sh for M in TP_SPLITS for sh in tp_dw(M)} - set(TRAIN_DW))
 # Odd extents and channel counts that are not a multiple of the vector width.
 # Then shapes that cut the forward kernel's tiles raggedly (64-byte channel
 # tiles, 8 x 16 outputs of (y, x) at stride 1 and 8 x 8 at stride 2, 4 rows
@@ -252,6 +273,10 @@ PATH_KERNELS = {
                       "depthwise_conv3d_grad_w", "sep_warp_pass")),
         ("serve", ("depthwise_conv3d_fwd",)))},
     "parallel_consensus": ("staple_em_iter",),
+    **{f"parallel_tp_{path}_rank{r}": ("depthwise_conv3d_fwd", "depthwise_conv3d_grad_x",
+                                        "depthwise_conv3d_grad_w", "sep_warp_pass")
+       for r in range(4) for path in ("step", "train_dl")},
+    "parallel_tp_consensus": ("staple_em_iter",),
     "parallel_pipeline": ("depthwise_conv3d_fwd", "depthwise_conv3d_grad_x",
                           "depthwise_conv3d_grad_w", "sep_warp_pass"),
 }
@@ -518,9 +543,9 @@ def phase_train_kernels(rec, seed):
     worst = {}
     failures = []
 
-    def note(kernel, dname, shape, stride, result):
+    def note(kernel, dname, shape, stride, result, where="train"):
         ok, max_abs, tol = result
-        key = f"{kernel}.train"
+        key = f"{kernel}.{where}"
         worst.setdefault(key, {})
         worst[key][dname] = max(worst[key].get(dname, 0.0), max_abs)
         log(f"[train_kernels] {kernel:24s} {dname:8s} {str(tuple(shape)):22s} s{stride} "
@@ -530,7 +555,8 @@ def phase_train_kernels(rec, seed):
 
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        for shape, stride in sorted(set(TRAIN_DW)) + EDGE_DW:
+        for shape, stride in sorted(set(TRAIN_DW)) + EDGE_DW + TP_DW:
+            where = "tp_slice" if (shape, stride) in TP_DW else "train"
             B, D, H, W, C = shape
             oshape = (B, out_extent(D, stride), out_extent(H, stride), out_extent(W, stride), C)
             x = torch.randn(shape, generator=gen, device=DEV).to(dtype)
@@ -539,19 +565,20 @@ def phase_train_kernels(rec, seed):
             with torch.no_grad():
                 got = depthwise_conv3d_fwd(x, w, stride)
                 note("depthwise_conv3d_fwd", dname, shape, stride,
-                     compare(got, depthwise_conv3d_plain(x.float(), w, stride), dtype))
+                     compare(got, depthwise_conv3d_plain(x.float(), w, stride), dtype), where)
                 del got
                 got = depthwise_conv3d_grad_x(g, w, stride, shape)
                 note("depthwise_conv3d_grad_x", dname, shape, stride,
-                     compare(got, depthwise_conv3d_grad_x_plain(g.float(), w, stride, shape), dtype))
+                     compare(got, depthwise_conv3d_grad_x_plain(g.float(), w, stride, shape), dtype),
+                     where)
                 del got
                 got = depthwise_conv3d_grad_w(x, g, stride)
                 note("depthwise_conv3d_grad_w", dname, shape, stride,
-                     compare_gw(got, depthwise_conv3d_grad_w_plain(x, g, stride)))
-                if (shape, stride) in TRAIN_DW:  # its sum has a fixed order
+                     compare_gw(got, depthwise_conv3d_grad_w_plain(x, g, stride)), where)
+                if (shape, stride) in TRAIN_DW or where == "tp_slice":  # its sum has a fixed order
                     same = torch.equal(got, depthwise_conv3d_grad_w(x, g, stride))
                     note("depthwise_conv3d_grad_w", dname, shape, stride,
-                         (same, 0.0 if same else math.inf, "two calls bitwise equal"))
+                         (same, 0.0 if same else math.inf, "two calls bitwise equal"), where)
             del x, g, w, got
             torch.cuda.empty_cache()
 
@@ -2947,6 +2974,9 @@ def phase_doctor(rec):
 # configuration's full width: `TrainConfig.tpu_production`, the 64 synthetic
 # samples of the train phase, a global batch of 8 at x1.5.
 PAR_RANKS, PAR_STEPS = 2, 3
+# Tensor parallelism: the same step on a grid of data 2 x model 2, 4 ranks
+# sharing the card through gloo (rank d * 2 + m).
+TP_DATA, TP_MODEL = 2, 2
 # First-step metrics of 2 ranks against 1 (`tests/test_parallel.py:64-72`).
 PAR_RTOL, PAR_ATOL = 2e-4, 1e-5
 # The pipelined step against the fused one, float32, dropout 0, the same
@@ -2974,14 +3004,17 @@ def _warm(state):
     return state
 
 
-def _par_steps(data, seed, out_dir=None):
+def _par_steps(data, tp=None, seed=0, out_dir=None):
     """PAR_STEPS production steps at the global batch of 8 on this rank's
-    rows (all of them without `data`). -> the first step's metrics, ms per
-    step, peak memory and launches; each step's state (parameters, buffers,
-    the DP vector) saved to `out_dir` for the cross-rank check."""
+    rows (all of them without `data`), the model sharded over `tp` (a
+    `parallel.mesh.ModelGroup`) if given. -> the first step's metrics, ms
+    per step, peak memory and launches; each step's state (parameters,
+    buffers, the DP vector; a sharded model's shards) saved to `out_dir`
+    for the cross-rank check."""
     import torch
 
     from deep_staple_torch.core.config import TrainConfig
+    from deep_staple_torch.parallel.tensor import shard_train_state
     from deep_staple_torch.train.driver import make_model
     from deep_staple_torch.train.state import create_state
     from deep_staple_torch.train.step import make_train_step
@@ -2992,7 +3025,7 @@ def _par_steps(data, seed, out_dir=None):
     cfg = TrainConfig.tpu_production()
     ds, cw, fixed = synthetic_dataset(DATASET_LEN, TRAIN_BASE[1:], seed, dev)
     model, _ = make_model(cfg, 2)
-    state = create_state(model, DATASET_LEN, seed=seed, device=dev)
+    state = shard_train_state(create_state(model, DATASET_LEN, seed=seed, device=dev), tp)
     step = make_train_step(model, cfg, cw, fixed, data=data)
     gen = torch.Generator(device=dev).manual_seed(seed)
     order = np.random.RandomState(seed).permutation(DATASET_LEN)
@@ -3012,7 +3045,8 @@ def _par_steps(data, seed, out_dir=None):
             out["metrics"] = {n: metrics[n].float().cpu().numpy().tolist()
                               for n in ("ce_loss", "dp_loss", "dice")}
         if out_dir is not None:
-            np.savez(Path(out_dir) / f"step{k}_rank{data.rank}.npz", dp=state.dp_params.cpu().numpy(),
+            rank = _t.distributed.get_rank()
+            np.savez(Path(out_dir) / f"step{k}_rank{rank}.npz", dp=state.dp_params.cpu().numpy(),
                      **{n: v.float().cpu().numpy() for n, v in model.state_dict().items()})
     out["launches"] = read_counts()
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else 0.0
@@ -3027,18 +3061,26 @@ def _sync_dev(dev):
 
 def parallel_rank(kind, out_json, *argv):
     """One rank of the parallel phase, in its own process (`kind`: 'step',
-    'main' or 'serve'); writes what the phase checks to `out_json`."""
+    'tp_step', 'main' or 'serve'); writes what the phase checks to
+    `out_json`."""
     import torch
 
     from deep_staple_torch.core.device import resolve_device
 
     torch.set_num_threads(2)
-    if kind == "step":
+    if kind in ("step", "tp_step"):
+        from deep_staple_torch.parallel.mesh import make_grid
         from deep_staple_torch.parallel.multihost import init_distributed
 
         rank, store, seed, out_dir = argv
-        data = init_distributed(PAR_RANKS, int(rank), f"file://{store}", device=DEV)
-        res = _par_steps(data, int(seed), out_dir)
+        tp = kind == "tp_step"
+        world = init_distributed(TP_DATA * TP_MODEL if tp else PAR_RANKS, int(rank),
+                                 f"file://{store}", device=DEV)
+        if tp:
+            res = _par_steps(*make_grid(world.device, TP_MODEL), seed=int(seed),
+                             out_dir=out_dir)
+        else:
+            res = _par_steps(world, seed=int(seed), out_dir=out_dir)
         torch.distributed.destroy_process_group()
     elif kind == "main":
         from deep_staple_torch.main import main
@@ -3129,7 +3171,7 @@ def phase_parallel(rec, seed, root):
         tmp = Path(tmp_s)
 
         # --- the data-parallel step: 1 rank here, then 2 ranks ---
-        one = _par_steps(None, seed)
+        one = _par_steps(None, seed=seed)
         torch.cuda.empty_cache() if dev.type == "cuda" else None
         ranks, wall = _launch_ranks("step", tmp, [[str(r), str(tmp / "store_step"), str(seed),
                                                    str(tmp)] for r in range(PAR_RANKS)])
@@ -3153,6 +3195,7 @@ def phase_parallel(rec, seed, root):
             f"(2 ranks / 1), excess over rtol {PAR_RTOL} atol {PAR_ATOL}: {gaps}")
         if max(gaps.values()) > 0:
             raise AssertionError(f"parallel step: 2 ranks vs 1 beyond the bound: {gaps}")
+        out["tp_step"] = _par_tp_step(rec, seed, tmp, one)
 
         # --- train_dl through main over 2 processes, and over 1 ---
         # As the train_dl phase's comparison (TRAIN_DL_*): float32, lr 1e-4,
@@ -3203,6 +3246,7 @@ def phase_parallel(rec, seed, root):
             raise AssertionError(f"parallel train_dl vs 1 process: DP {dp_gap}, loss {loss_gap}")
         del single
         torch.cuda.empty_cache() if dev.type == "cuda" else None
+        out["tp_train_dl"] = _par_tp_main(rec, tmp, dl_argv, dp1, loss1)
 
         # --- the pipeline: the pipelined step against the fused one ---
         out["pipeline"] = _par_pipeline(rec, seed, root, tmp)
@@ -3246,6 +3290,93 @@ def phase_parallel(rec, seed, root):
         if not check_mesh(300):
             raise AssertionError("doctor: the 2-rank gloo mesh probe failed")
         out["doctor_mesh_s"] = time.perf_counter() - t
+
+
+def _par_tp_step(rec, seed, tmp, one):
+    """The production step on data 2 x model 2 (4 ranks sharing the card)
+    against one rank: its first step's metrics at PAR_RTOL / PAR_ATOL, and
+    after each step every replicated leaf the same bits on all 4 ranks and
+    every sharded one on the 2 data ranks of its model index."""
+    from deep_staple_torch.core.config import TrainConfig
+    from deep_staple_torch.parallel.tensor import shard_plan
+    from deep_staple_torch.train.driver import make_model
+
+    world = TP_DATA * TP_MODEL
+    tdir = tmp / "tp_step"
+    tdir.mkdir()
+    ranks, wall = _launch_ranks("tp_step", tdir, [[str(r), str(tmp / "store_tp"), str(seed),
+                                                   str(tdir)] for r in range(world)])
+    full = make_model(TrainConfig.tpu_production(), 2)[0].state_dict()
+    plan = shard_plan(full, TP_MODEL)
+    for k in range(PAR_STEPS):
+        res = [np.load(tdir / f"step{k}_rank{r}.npz") for r in range(world)]
+        for r in range(world):
+            bad = [n for n in res[0].files if not np.array_equal(
+                res[r][n], res[r % TP_MODEL][n] if n in plan else res[0][n])]
+            if bad:
+                raise AssertionError(f"tp step {k}: rank {r} differs in {bad[:5]}")
+        shapes = {n: res[0][n].shape for n in plan}
+        if any(shapes[n][d] * TP_MODEL != full[n].shape[d] for n, (d, _) in plan.items()):
+            raise AssertionError("tp step: a sharded leaf is not 1/M of its full width")
+    gaps = {n: _close(ranks[0]["metrics"][n], one["metrics"][n], PAR_RTOL, PAR_ATOL)
+            for n in ("ce_loss", "dp_loss", "dice")}
+    for r, res in enumerate(ranks):
+        _record_path(rec, f"parallel_tp_step_rank{r}", res["launches"])
+        log(f"[parallel] tp step rank {r} (data {r // TP_MODEL}, model {r % TP_MODEL}): ms per "
+            f"step {[round(m, 1) for m in res['ms']]} (1 rank: {[round(m, 1) for m in one['ms']]}), "
+            f"peak {res['peak_mem_gb']:.2f} GB (1 rank {one['peak_mem_gb']:.2f}), launches "
+            f"{res['launches']}")
+    log(f"[parallel] tp step data {TP_DATA} x model {TP_MODEL}: {len(plan)} leaves sharded; "
+        f"replicated leaves bitwise equal on all {world} ranks and sharded ones on the data ranks "
+        f"of each model index after each of {PAR_STEPS} steps; first step ce "
+        f"{ranks[0]['metrics']['ce_loss']:.6f} / {one['metrics']['ce_loss']:.6f}, dp "
+        f"{ranks[0]['metrics']['dp_loss']:.6f} / {one['metrics']['dp_loss']:.6f} (grid / 1 rank), "
+        f"excess over rtol {PAR_RTOL} atol {PAR_ATOL}: {gaps}")
+    if max(gaps.values()) > 0:
+        raise AssertionError(f"tp step: the grid vs 1 rank beyond the bound: {gaps}")
+    return {"ranks": ranks, "launch_wall_s": wall, "metric_excess": gaps,
+            "sharded_leaves": len(plan)}
+
+
+def _par_tp_main(rec, tmp, dl_argv, dp1, loss1):
+    """`main` over 4 processes (data 2 x model 2) on the driver's fixture,
+    as the 2-process run: DP bitwise equal across ranks, only rank 0 wrote,
+    DP and loss against one process (`dp1`, `loss1`), the consensus of rank
+    0's snapshot. With remat, so that four float32 ranks fit on one card
+    beside each other (without it they ran out of its 80 GB); the
+    recomputation repeats the forward, so one process without it is the
+    reference still."""
+    from deep_staple_torch.consensus.evaluate import evaluate_consensus
+
+    world = TP_DATA * TP_MODEL
+    ranks, wall = _launch_ranks("main", tmp, [dl_argv(
+        "tp", "--mesh-data-axis", str(TP_DATA), "--mesh-model-axis", str(TP_MODEL),
+        "--dist-num-processes", str(world), "--dist-process-id", str(r), "--dist-coordinator",
+        f"file://{tmp / 'store_tp_main'}", "--use-checkpointing", "true") for r in range(world)])
+    dps = [np.asarray(r["dp"], np.float32) for r in ranks]
+    if any(not np.array_equal(d, dps[0]) for d in dps[1:]):
+        raise AssertionError("tp train_dl: the ranks' DP vectors differ")
+    if not (ranks[0]["writes_metrics"] and ranks[0]["snapshot"]
+            and not any(r["writes_metrics"] or r["snapshot"] for r in ranks[1:])):
+        raise AssertionError(f"tp train_dl: writes {ranks}")
+    ckpts = sorted(p.name for p in (tmp / "tp" / "models").iterdir())
+    if ckpts != ["par_fold0_epx0"]:
+        raise AssertionError(f"tp train_dl: checkpoints {ckpts}")
+    for r, res in enumerate(ranks):
+        _record_path(rec, f"parallel_tp_train_dl_rank{r}", res["launches"])
+    reset_counts()
+    evaluate_consensus(ranks[0]["snapshot"], out_path=tmp / "tp_consensus.pkl", device=DEV)
+    _record_path(rec, "parallel_tp_consensus", read_counts())
+    dp_gap = float(np.abs(dps[0] - dp1).max() / np.abs(dp1).max())
+    loss_gap = abs(ranks[0]["losses"][0] - loss1[0]) / abs(loss1[0])
+    log(f"[parallel] tp train_dl over {world} processes (data {TP_DATA} x model {TP_MODEL}): "
+        f"{wall:.1f} s from launch to exit; DP bitwise equal across ranks; only rank 0 wrote; DP "
+        f"{dp_gap:.2e} of its largest from 1 process (bound {TRAIN_DL_DP_RTOL}), epoch loss "
+        f"{loss_gap:.2e} (bound {TRAIN_DL_LOSS_RTOL}); launches {[r['launches'] for r in ranks]}; "
+        f"K4 on the snapshot's consensus")
+    if dp_gap > TRAIN_DL_DP_RTOL or loss_gap > TRAIN_DL_LOSS_RTOL:
+        raise AssertionError(f"tp train_dl vs 1 process: DP {dp_gap}, loss {loss_gap}")
+    return {"launch_wall_s": wall, "dp_gap": dp_gap, "loss_gap": loss_gap, "ranks": ranks}
 
 
 def _free_port() -> int:
@@ -3614,9 +3745,9 @@ def phase_dataset_tools(rec, seed):
 
 # ----------------------------------------------------------------- times
 
-def _time_row(kernel_fn, plain_fn, library_fn, nbytes, ops, reps=10):
+def _time_row(kernel_fn, plain_fn, library_fn, nbytes, ops, reps=10, plain_reps=3):
     k_ms = timed_ms(kernel_fn, reps=reps)
-    p_ms = timed_ms(plain_fn, reps=3, warmup=1)
+    p_ms = timed_ms(plain_fn, reps=plain_reps, warmup=1)
     l_ms = timed_ms(library_fn, reps=reps) if library_fn is not None else None
     b_ms, by = bound(nbytes, ops)
     return {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms, "bound_by": by,
@@ -3628,7 +3759,9 @@ def phase_times(rec, seed):
     its plain version and the one PyTorch call that computes the same
     function (timed here only): F.conv3d(groups=C) for the forward,
     aten.convolution_backward(groups=C) with the input or the weight
-    gradient selected for the backward. The separable warp has no such call."""
+    gradient selected for the backward. The separable warp has no such call.
+    The training rows again at a rank's channel slice of a model axis of 2
+    and 4 (`train_m2`, `train_m4`; the plain version timed once)."""
     import torch
     import torch.nn.functional as F
 
@@ -3639,7 +3772,9 @@ def phase_times(rec, seed):
     gen = torch.Generator(device=DEV).manual_seed(seed + 2)
     saved = read_counts()
     times = {name: {} for name in KERNELS}
-    for path, shapes in (("serve", SERVING_DW), ("train", TRAIN_DW)):
+    paths = [("serve", SERVING_DW), ("train", TRAIN_DW)] + [(f"train_m{M}", tp_dw(M))
+                                                            for M in TP_TIMED]
+    for path, shapes in paths:
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
             for shape, stride in shapes:
@@ -3663,7 +3798,7 @@ def phase_times(rec, seed):
                     lambda: dw.depthwise_conv3d_fwd(x, w, stride),
                     lambda: dw.depthwise_conv3d_plain(x, w, stride),
                     lambda: F.conv3d(xl, wl, None, stride, 1, 1, C)))]
-                if path == "train":
+                if path.startswith("train"):
                     entries += [
                         ("depthwise_conv3d_grad_x", (
                             lambda: dw.depthwise_conv3d_grad_x(g, w, stride, shape),
@@ -3676,8 +3811,8 @@ def phase_times(rec, seed):
                     ]
                 with torch.no_grad():
                     for name, (kfn, pfn, lfn) in entries:
-                        row = {"shape": list(shape), "stride": stride,
-                               **_time_row(kfn, pfn, lfn, io, ops)}
+                        row = {"shape": list(shape), "stride": stride, **_time_row(
+                            kfn, pfn, lfn, io, ops, plain_reps=1 if "_m" in path else 3)}
                         times[name].setdefault(path, {}).setdefault(dname, []).append(row)
                         log(f"[times] {name:24s} {dname:8s} {str(tuple(shape)):22s} s{stride} "
                             f"kernel {row['ms']:8.3f} ms bound {row['bound_ms']:7.3f} ms "
@@ -3807,6 +3942,13 @@ def summary_line(rec):
         if name == "depthwise_conv3d_grad_x" and "train" in rows:
             entry["stride_2"] = {d: _sums([r for r in rs if r["stride"] == 2])
                                  for d, rs in rows["train"].items()}
+        # A rank's channel slice of a model axis of M: one training step's
+        # ten calls at C = mid / M.
+        tp = {f"m{M}": {d: _sums(r) for d, r in rows[f"train_m{M}"].items()}
+              for M in TP_TIMED if f"train_m{M}" in rows}
+        if tp:
+            entry["tp_slices"] = tp
+            entry["tp_slice_max_abs_err"] = checks.get(f"{name}.tp_slice")
         entries.append(entry)
     return {"kernels": entries}
 

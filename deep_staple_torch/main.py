@@ -18,6 +18,12 @@ host:port` (or `tcp://host:port`, `file:///shared/path`), or under
 `torchrun --nproc-per-node N`, whose environment fills the flags left unset.
 Rank r runs on `cuda:(local rank mod visible cards)` (`--device cpu`: the
 CPU); ranks that share a card talk through gloo, else NCCL.
+
+Tensor parallelism over a model axis of M (`--mesh-model-axis M`,
+`parallel/tensor.py`): D x M processes, `--mesh-data-axis D
+--mesh-model-axis M --dist-num-processes D*M` (or `torchrun
+--nproc-per-node D*M`); each rank holds its channel slice of the sharded
+convs, and JAX's one-process model axis is a process a rank here.
 """
 
 from __future__ import annotations

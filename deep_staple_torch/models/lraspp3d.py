@@ -27,6 +27,14 @@ four segments him, lom, aspp and head (`lraspp3d.py:453-458`) through
 `models/remat.py`, so that a recomputation neither updates BatchNorm
 statistics again nor draws a new dropout mask. `init_weights` draws
 parameters from the Flax initializers' distributions (`lraspp3d.py:54-65`).
+
+Tensor parallelism (`parallel/tensor.py::shard_model`): a sharded model's
+leaves are its rank's channel slices, a column region (an inverted
+residual, the ASPP, the head) passes its input through `copy_to_model`
+(`model_group`), and a row conv sums its partial output over the model
+group (`row_group`) before its bias. The partial products of a bfloat16
+model are summed in float32 and rounded once, as one rank's conv rounds
+its float32 accumulation once.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from torch import nn
 
 from ..ops.conv3d_dw import depthwise_conv3d
 from ..ops.resample import resize_nd
+from ..parallel.tensor import copy_to_model, reduce_from_model
 from . import remat
 from .norm import BatchNorm
 
@@ -74,10 +83,17 @@ class Conv3d(nn.Module):
         self.stride, self.dilation, self.k = stride, dilation, kernel
         self.kernel = nn.Parameter(torch.zeros(features, in_features, kernel, kernel, kernel))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+        # A row conv of a model-sharded layer (`parallel/tensor.py`): its
+        # model group, and the local input channels where its input is
+        # replicated.
+        self.row_group = None
+        self.in_index = None
 
     def forward(self, x):
         w = self.kernel.to(x.dtype)
         b = None if self.bias is None else self.bias.to(x.dtype)
+        if self.row_group is not None:
+            return self._row(x, w, b)
         if self.k == 1 and self.stride == 1:
             w2 = w.reshape(w.shape[0], w.shape[1]).t()
             y = x @ w2
@@ -85,6 +101,19 @@ class Conv3d(nn.Module):
         pad = self.dilation * (self.k // 2)
         y = F.conv3d(_to_ncdhw(x), w, b, self.stride, pad, self.dilation)
         return _to_ndhwc(y).contiguous()
+
+    def _row(self, x, w, b):
+        """A 1x1x1 row conv: this rank's input channels times its kernel
+        rows, in float32, summed over the model group, rounded to x's dtype
+        once; then the bias, once."""
+        if self.k != 1 or self.stride != 1:
+            raise ValueError("a row conv is 1x1x1")
+        if self.in_index is not None:
+            x = copy_to_model(x, self.row_group)[..., self.in_index.to(x.device)]
+        acc = torch.promote_types(x.dtype, torch.float32)
+        y = x.to(acc) @ w.reshape(w.shape[0], w.shape[1]).t().to(acc)
+        y = reduce_from_model(y, self.row_group).to(x.dtype)
+        return y if b is None else y.add_(b)
 
 
 class DepthwiseConv3D(nn.Module):
@@ -167,9 +196,11 @@ class InvertedResidual3D(nn.Module):
             self.ConvBN_0 = ConvBN(inc, midc, kernel=1, act="relu6", **kw)
         self.ConvBN_1 = ConvBN(midc, midc, kernel=3, stride=stride, groups=midc, act="relu6", **kw)
         self.ConvBN_2 = ConvBN(midc, outc, kernel=1, act=None, **kw)
+        self.model_group = None  # a column region of a model-sharded model
 
     def forward(self, x, train: bool = False):
-        y = self.ConvBN_2(self.ConvBN_1(self.ConvBN_0(x, train), train), train)
+        h = copy_to_model(x, self.model_group)
+        y = self.ConvBN_2(self.ConvBN_1(self.ConvBN_0(h, train), train), train)
         return y.add_(x) if self.residual else y
 
 
@@ -216,6 +247,7 @@ class ASPP3D(nn.Module):
         super().__init__()
         self.dropout_rate = dropout_rate
         self.data = None  # the data group of a data-parallel step
+        self.model_group = None  # a column region of a model-sharded model
         self.n_rates = len(atrous_rates)
         kw = dict(act="relu", dtype=dtype, bn_mode=bn_mode)
         self.ConvBN_0 = ConvBN(in_features, out_channels, kernel=1, **kw)
@@ -229,6 +261,7 @@ class ASPP3D(nn.Module):
 
     def forward(self, x, train: bool = False, generator: Optional[torch.Generator] = None):
         n = self.n_rates
+        x = copy_to_model(x, self.model_group)
         branches = [getattr(self, f"ConvBN_{j}")(x, train) for j in range(n + 1)]
         pooled = x.mean(dim=(1, 2, 3), keepdim=True)
         pooled = getattr(self, f"ConvBN_{n + 1}")(pooled, train)
@@ -269,8 +302,10 @@ class LRASPPHead3D(nn.Module):
         self.Conv_0 = Conv3d(high_channels, inter_channels)
         self.Conv_1 = Conv3d(low_channels, num_classes, use_bias=True)
         self.Conv_2 = Conv3d(inter_channels, num_classes, use_bias=True)
+        self.model_group = None  # a column region of a model-sharded model
 
     def forward(self, low, high, train: bool = False):
+        high = copy_to_model(high, self.model_group)
         x = self.ConvBN_0(high, train)
         s = self.Conv_0(high.mean(dim=(1, 2, 3), keepdim=True))
         x = x * torch.sigmoid(s)

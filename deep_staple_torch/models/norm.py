@@ -27,7 +27,10 @@ Statistics are float32 means of x and x^2 over every axis but the last,
 var = E[x^2] - E[x]^2, momentum 0.9. With a data group (`data`, set by
 `parallel/mesh.py::attach_data_group`) the means are over the global batch
 of every rank, as the JAX step's are under GSPMD: the ranks' means are
-averaged, through an all-reduce that carries the gradient in 'batch' mode. The running statistics are updated in
+averaged, through an all-reduce that carries the gradient in 'batch' mode;
+with a model axis that group is the ranks of this rank's model index, and a
+BatchNorm after a column conv holds its rank's channels (`parallel/
+tensor.py`), one after a row conv all of them. The running statistics are updated in
 place, once per forward: a checkpointed recomputation (`models/remat.py`)
 makes no update and normalizes as the first run did.
 """

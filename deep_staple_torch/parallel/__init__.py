@@ -1,8 +1,11 @@
 """Parallel training and serving: data parallelism over processes, one rank
-a device (`mesh.py`, `multihost.py`), and the two-stage GPipe pipeline
-(`pipeline.py`). The JAX package's tensor and spatial sharding
-(`parallel/tensor.py`, `parallel/spatial.py`) come with slice 6b."""
+a device (`mesh.py`, `multihost.py`), tensor parallelism over a model axis
+of ranks (`tensor.py`), and the two-stage GPipe pipeline (`pipeline.py`).
+The JAX package's spatial sharding (`parallel/spatial.py`) comes with
+slices 6c and 6d."""
 
-from .mesh import DataGroup, attach_data_group, make_data_group, shard_batch
+from .mesh import DataGroup, ModelGroup, attach_data_group, make_data_group, make_grid, shard_batch
+from .tensor import shard_model, shard_train_state
 
-__all__ = ["DataGroup", "attach_data_group", "make_data_group", "shard_batch"]
+__all__ = ["DataGroup", "ModelGroup", "attach_data_group", "make_data_group", "make_grid",
+           "shard_batch", "shard_model", "shard_train_state"]

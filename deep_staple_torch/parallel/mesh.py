@@ -15,6 +15,13 @@ for tensors on the card (NCCL when each rank has its own card; gloo when
 ranks share one, where NCCL refuses, and on the CPU), and it gives every
 rank the same bits, so that replicated state stays bitwise equal. Rows are
 gathered the same way (`gather_rows`).
+
+With a model axis (`parallel/tensor.py`) the world is a grid of D x M
+ranks, rank r = d * M + m with the model index fastest, as the devices of
+JAX's `make_mesh` (`deep_staple_tpu/parallel/mesh.py:29`): the data group
+of a rank is the D ranks of its model index m, its model group the M ranks
+of its data index d (`make_grid`). The step's sums over the batch span
+the data group only; a model group's ranks hold the same rows.
 """
 
 from __future__ import annotations
@@ -86,7 +93,8 @@ class DataGroup:
         return full
 
     def broadcast_(self, t: torch.Tensor) -> torch.Tensor:
-        """Overwrite `t` with rank 0's value, in place."""
+        """Overwrite `t` with rank 0's value, in place (a group that holds
+        global rank 0: the world's)."""
         buf = t if t.device == self.device else t.to(self.device)
         dist.broadcast(buf, src=0, group=self.group)
         if buf is not t:
@@ -101,13 +109,47 @@ class DataGroup:
 
 
 def make_data_group(device) -> Optional[DataGroup]:
-    """The data group of the initialized default process group, on this
-    rank's `device`; None for a single process (the counterpart of
-    `make_mesh`, `mesh.py:25-30`)."""
+    """The whole world as a group of the initialized default process group,
+    on this rank's `device`; None for a single process (the counterpart of
+    `make_mesh`, `mesh.py:25-30`): the data group without a model axis."""
     if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() == 1:
         return None
     return DataGroup(rank=dist.get_rank(), size=dist.get_world_size(),
                      device=torch.device(device), backend=dist.get_backend())
+
+
+@dataclass(frozen=True)
+class ModelGroup:
+    """This rank's place on the model axis (`parallel/tensor.py`): `size`
+    ranks of the process group `group`, this one `rank`; `root` is the
+    global rank of the group's model rank 0."""
+
+    rank: int
+    size: int
+    group: object
+    root: int
+
+
+def make_grid(device, model_axis: int = 1):
+    """-> (data group, model group) of this rank in the initialized default
+    process group, the world a grid of D x M ranks, rank d * M + m: the data
+    group the D ranks of this rank's m, the model group the M ranks of its
+    d; either None where it holds one rank (both for a single process).
+    Every rank calls it once, making every group in the same order."""
+    if model_axis <= 1:
+        return make_data_group(device), None
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if world % model_axis:
+        raise ValueError(f"a model axis of {model_axis} does not divide {world} ranks")
+    D, M = world // model_axis, model_axis
+    d, m = divmod(rank, M)
+    data_groups = [dist.new_group([i * M + j for i in range(D)]) if D > 1 else None
+                   for j in range(M)]
+    model_groups = [dist.new_group([i * M + j for j in range(M)]) if D > 1 else dist.group.WORLD
+                    for i in range(D)]
+    data = None if D == 1 else DataGroup(rank=d, size=D, device=torch.device(device),
+                                         backend=dist.get_backend(), group=data_groups[m])
+    return data, ModelGroup(rank=m, size=M, group=model_groups[d], root=d * M)
 
 
 def shard_batch(batch: dict, data: Optional[DataGroup]) -> dict:
@@ -120,7 +162,8 @@ def shard_batch(batch: dict, data: Optional[DataGroup]) -> dict:
 
 def attach_data_group(model: torch.nn.Module, data: Optional[DataGroup]) -> torch.nn.Module:
     """Give every module of `model` that couples the batch's rows in train
-    mode (BatchNorm's moments, the ASPP's dropout mask) the data group."""
+    mode (BatchNorm's moments, the ASPP's dropout mask) the data group (with
+    a model axis, the ranks of this rank's model index)."""
     from ..models.lraspp3d import ASPP3D
     from ..models.norm import BatchNorm
 

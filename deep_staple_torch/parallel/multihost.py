@@ -1,5 +1,5 @@
-"""Processes of one data-parallel job: the launch, each rank's rows, and
-rank 0's state on every rank.
+"""Processes of one data- or tensor-parallel job: the launch, each rank's
+rows, and rank 0's state on every rank.
 
 The counterpart of `deep_staple_tpu/parallel/multihost.py`. JAX joins a
 multi-host job through its coordination service and assembles global arrays
@@ -15,7 +15,9 @@ torchrun's environment (`WORLD_SIZE`, `RANK`, `MASTER_ADDR` and
 metadata. Rank r runs on `cuda:(local rank mod visible cards)`, or on the
 CPU when asked. The backend is NCCL when each local rank has a card of its
 own and gloo when ranks share one (NCCL refuses two ranks on one device)
-or run on the CPU; tensors stay on their device either way.
+or run on the CPU; tensors stay on their device either way. With a model
+axis of M (`parallel/tensor.py`) the job is D x M processes, a grid of
+ranks (`parallel/mesh.py::make_grid`).
 """
 
 from __future__ import annotations
@@ -127,7 +129,10 @@ def replicate_to_mesh(state, data: Optional[DataGroup]):
     """Rank 0's train state on every rank, in place (`multihost.py:40-52`):
     the model's parameters and buffers, the optimizer's state, the DP vector
     and its SparseAdam state. Every rank built the same state from the same
-    seed; this makes it so bit for bit, whatever each rank restored."""
+    seed; this makes it so bit for bit, whatever each rank restored. `data`
+    is the whole world's group; with a model axis the state is the full,
+    unsharded one, of which each rank then takes its shard
+    (`parallel/tensor.py::shard_train_state`)."""
     if data is None:
         return state
     tensors = list(state.model.state_dict().values())

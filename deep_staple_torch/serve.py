@@ -26,7 +26,7 @@ rows split over the ranks (the batch size divides by N), each rank loads
 and runs its own, and rank 0 gathers the label maps and writes them: eval
 uses BatchNorm's running statistics, so no collective enters the forward,
 and the maps are those of one process run at the ranks' batch size.
-`--mesh-space` (the volume's H axis over devices) comes with slice 6b.
+`--mesh-space` (the volume's H axis over devices) comes with slice 6c.
 """
 
 from __future__ import annotations
@@ -88,7 +88,7 @@ def serve(checkpoint_dir, input_paths, output_dir, batch_size: int = 4,
     size = tuple(size)
     if mesh_space > 1:
         raise NotImplementedError(
-            "--mesh-space (the volume's H axis over devices) comes with slice 6b of the port")
+            "--mesh-space (the volume's H axis over devices) comes with slice 6c of the port")
     data = None
     if mesh_data > 1:
         data = _join_serving_ranks(mesh_data, batch_size, device)
@@ -241,7 +241,7 @@ def main(argv=None):
                     help="canonical training volume size (L4 default)")
     ap.add_argument("--mesh-data", type=int, default=1,
                     help="serve on N ranks, one a device, under torchrun --nproc-per-node N")
-    ap.add_argument("--mesh-space", type=int, default=1, help="multi-GPU H sharding: slice 6b")
+    ap.add_argument("--mesh-space", type=int, default=1, help="multi-GPU H sharding: slice 6c")
     ap.add_argument("--device", default=None,
                     help="'cuda' (default; raises without CUDA) or 'cpu'")
     args = ap.parse_args(argv)

@@ -54,8 +54,21 @@ cards)` (both on one card here) or on the CPU, `pipe_microbatches` a batch
 each epoch the model is placed back on stage 0's device for validation,
 checkpoints and the snapshot (`driver.py:281-298`, `:378-417`, `:473-481`).
 
-Options of a later slice raise NotImplementedError naming it: spatial and
-tensor sharding (slice 6b), and JAX's orbax checkpoints.
+Tensor parallelism (`mesh_model_axis` M > 1, `parallel/tensor.py`): the
+world is a grid of D x M ranks (D = `mesh_data_axis`), rank d * M + m, one
+device a rank, where JAX runs the model axis over devices of one process
+(`driver.py:255-276`, `:341-348`). A rank cuts its rows by its data index
+d; after rank 0's state is on every rank, each takes its channel slice of
+the sharded leaves and of AdamW's moments (`shard_train_state`). The
+checkpoints hold the single-device layout, gathered over each model group
+(every rank joins, rank 0 writes); validation and the snapshot's
+predictions run on every rank through the sharded model, whose collectives
+need them all, and rank 0 writes. The 2D model has no leaf that the rules
+shard and runs replicated over the model group, as JAX's `shard_tp` leaves
+it.
+
+Options of a later slice raise NotImplementedError naming it: spatial
+sharding (slices 6c and 6d), and JAX's orbax checkpoints.
 """
 
 from __future__ import annotations
@@ -75,10 +88,11 @@ from ..models import LRASPPMobileNetV3Large2D, MobileNetLRASPP3D
 from ..ops.augment import AugmentDraws, AugmentParams, check_order, draw_augment
 from ..ops.dice import batch_dice_over_all, batch_dice_per_class, dice_from_int_labels
 from ..ops.resample import interpolate_sample
-from ..parallel.mesh import make_data_group
+from ..parallel.mesh import make_data_group, make_grid
 from ..parallel.multihost import (
     check_resume_agrees, coordination_barrier, host_shard_indices, replicate_to_mesh,
 )
+from ..parallel.tensor import attach_model_group, gather_train_state, shard_train_state
 from ..utils.logging import MetricWriter, get_global_idx, log_class_dices, log_data_parameter_stats
 from .checkpoint import (
     check_backend, checkpoint_exists, jax_checkpoint_only, restore_checkpoint, save_checkpoint,
@@ -157,6 +171,8 @@ def make_warmup_model(model, config: TrainConfig, num_classes: int):
     for name, mod in warm.named_modules():
         mod._parameters = mods[name]._parameters
         mod._buffers = mods[name]._buffers
+    if getattr(model, "tp", None) is not None:
+        attach_model_group(warm, model.tp)
     return warm
 
 
@@ -199,35 +215,39 @@ def _world_size() -> int:
 def check_supported(config: TrainConfig):
     """Raise for options that cannot run as configured, before any work:
     NotImplementedError for an option that a later slice brings, ValueError
-    for a data axis that does not match the processes."""
-    if config.mesh_space_axis > 1 or config.mesh_model_axis > 1:
+    for data and model axes that do not match the processes."""
+    if config.mesh_space_axis > 1:
         raise NotImplementedError(
-            "spatial and tensor sharding (mesh_space_axis, mesh_model_axis > 1) come with "
-            "slice 6b of the port (parallel/spatial.py, parallel/tensor.py)")
+            "spatial sharding (mesh_space_axis > 1) comes with slices 6c and 6d of the port "
+            "(parallel/spatial.py)")
     nproc = _world_size()
     if (config.dist_num_processes or 1) > 1 and nproc == 1:
         raise ValueError(
             f"dist_num_processes={config.dist_num_processes} but this process joined no process "
             "group: call main.maybe_init_distributed(config) first")
-    if nproc == 1 and config.mesh_data_axis > 1:
-        n = config.mesh_data_axis
+    ranks = config.mesh_data_axis * config.mesh_model_axis
+    if nproc == 1 and ranks > 1:
+        axes = (f"mesh_data_axis={config.mesh_data_axis} x mesh_model_axis="
+                f"{config.mesh_model_axis}" if config.mesh_model_axis > 1
+                else f"mesh_data_axis={ranks}")
         raise ValueError(
-            f"mesh_data_axis={n} runs one process a rank: launch {n} processes with "
-            f"--dist-num-processes {n} (each with --dist-process-id and --dist-coordinator, or "
-            f"under torchrun --nproc-per-node {n})")
+            f"{axes} runs one process a rank: launch {ranks} processes with "
+            f"--dist-num-processes {ranks} (each with --dist-process-id and --dist-coordinator, "
+            f"or under torchrun --nproc-per-node {ranks})")
     if nproc > 1:
         if config.mesh_pipe_stages > 1:
             raise ValueError(
                 "mesh_pipe_stages > 1 is single-process only (stages are placed on explicit "
                 "local devices)")
-        if config.mesh_data_axis % nproc:
+        if config.mesh_model_axis == 1 and config.mesh_data_axis % nproc:
             raise ValueError(
                 f"mesh_data_axis={config.mesh_data_axis} must divide over {nproc} processes "
                 "(equal batch rows per host)")
-        if config.mesh_data_axis != nproc:
+        if ranks != nproc:
             raise ValueError(
-                f"mesh_data_axis={config.mesh_data_axis} over {nproc} processes: the port runs "
-                "one device a rank, so the data axis is the number of processes")
+                f"mesh_data_axis={config.mesh_data_axis} x mesh_model_axis="
+                f"{config.mesh_model_axis} over {nproc} processes: the port runs one device a "
+                "rank, so data x model is the number of processes")
     check_order(config.augment_order)
     if config.save_dp_figures or config.do_plot:
         from ..utils.visualization import require_plotting
@@ -300,8 +320,12 @@ def train_dl(run_name: str, config: TrainConfig, dataset, atlas_count=None,
     "mean_step_time", "writer"}} as the JAX driver does."""
     check_supported(config)
     dev = resolve_device(device)
-    data = make_data_group(dev)
-    is_main = data is None or data.rank == 0
+    world = make_data_group(dev)  # every rank: the resume check, rank 0's state, barriers
+    data, tp = make_grid(dev, config.mesh_model_axis)
+    is_main = world is None or world.rank == 0
+    if world is not None:
+        print(f"Device mesh: data={config.mesh_data_axis} space={config.mesh_space_axis} "
+              f"model={config.mesh_model_axis} over {world.size} processes")
     reset_determinism(config.seed)
     atlas_count = atlas_count if atlas_count is not None else config.atlas_count
     writer = writer or MetricWriter(
@@ -387,11 +411,12 @@ def train_dl(run_name: str, config: TrainConfig, dataset, atlas_count=None,
         )
 
         epx = max(epx_start - 1, 0)  # snapshot dir name if the loop is empty
-        check_resume_agrees(epx_start, checkpoint_exists(ckpt_path), config.mdl_save_prefix, data)
+        check_resume_agrees(epx_start, checkpoint_exists(ckpt_path), config.mdl_save_prefix,
+                            world)
         if checkpoint_exists(ckpt_path):
             print(f"Restoring checkpoint from {ckpt_path}")
             state = restore_checkpoint(ckpt_path, state)
-        state = replicate_to_mesh(state, data)
+        state = shard_train_state(replicate_to_mesh(state, world), tp)
         pp_devices = None
         if config.mesh_pipe_stages > 1:
             from ..parallel.pipeline import make_pp_train_step, place_model, stage_devices
@@ -482,8 +507,8 @@ def train_dl(run_name: str, config: TrainConfig, dataset, atlas_count=None,
                 lr = (cosine_warm_restarts_lr(config.lr, sched_steps) if use_2d
                       else exp_lr(config.lr, sched_steps))
                 step_fn = warmup_step if epx < warmup_epochs and warmup_step is not None else train_step
-                if data is not None and id(step_fn) not in started_steps:
-                    coordination_barrier(data)
+                if world is not None and id(step_fn) not in started_steps:
+                    coordination_barrier(world)
                 started_steps.add(id(step_fn))
                 t0 = time.time()
                 state, metrics = step_fn(state, batch, lr, generator=dev_gen, draws=draws)
@@ -562,9 +587,14 @@ def train_dl(run_name: str, config: TrainConfig, dataset, atlas_count=None,
                     writer, f"data_parameters/iter_stats_fold{fold_idx}", global_idx, dp_host
                 )
 
-            if is_main and ((epx % config.save_every == 0) or (epx + 1 == config.epochs)):
-                _path = Path(config.mdl_save_prefix) / f"{run_name}_fold{fold_idx}_epx{epx}"
-                save_checkpoint(_path, state, config, backend=config.checkpoint_backend)
+            if (epx % config.save_every == 0) or (epx + 1 == config.epochs):
+                # The single-device layout, gathered over each model group.
+                full = state if tp is None else gather_train_state(
+                    state, make_model(config, num_classes)[0])
+                if is_main:
+                    _path = Path(config.mdl_save_prefix) / f"{run_name}_fold{fold_idx}_epx{epx}"
+                    save_checkpoint(_path, full, config, backend=config.checkpoint_backend)
+                del full
 
             # --- validation (reference :876-955): always full 3D volumes ---
             dataset.eval()
@@ -589,6 +619,10 @@ def train_dl(run_name: str, config: TrainConfig, dataset, atlas_count=None,
 
         # --- snapshot export (reference :963-1045) ---
         snapshot_path = None
+        if use_dp and not is_main and tp is not None:
+            # The sharded model's predictions need every rank of its group.
+            export_train_label_snapshot(None, state, model, config, dataset, train_idxs,
+                                        disturbed_bool_vect, save_labels=config.save_labels)
         if use_dp and is_main:
             snapshot_path = (
                 Path(config.output_dir) / f"{run_name}_fold{fold_idx}_epx{epx}" / "train_label_snapshot.npz"

@@ -1,7 +1,9 @@
 """Single-volume inference (`deep_staple_tpu/train/infer.py`, after
 `inference_wrap`, `main_deep_staple.py:471-487`): one volume, or one slice
 for the 2D model, through the model in eval mode, optionally as its MIND-SSC
-features, argmax to a label map, on the model's device."""
+features, argmax to a label map, on the model's device. A model sharded over
+a model axis (`parallel/tensor.py`) sums its row convs over its group, so
+every rank of the group calls it on the same volume."""
 
 from __future__ import annotations
 

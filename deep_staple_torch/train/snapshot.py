@@ -10,7 +10,9 @@ rows are slices, scaled in 2D (`snapshot.py:36-56`). The prediction runs on
 the model's device in eval mode (on the card, the 3D model's: K2's forward)
 and sees the network's input features: with `use_mind` the MIND-SSC
 channels, which the JAX export leaves out (its `img2[..., None]` gives a
-12-channel model one channel, `snapshot.py:50`).
+12-channel model one channel, `snapshot.py:50`). A model sharded over a
+model axis (`parallel/tensor.py`) predicts on every rank of its group; a
+rank that does not write passes no path.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ def export_train_label_snapshot(
     save_labels: bool = True,
     eval_scale_factor: float = 2.0,
 ):
+    """-> the snapshot dict, written to `path` unless it is None."""
     use_2d = dataset.use_2d()
     device = next(model.parameters()).device
 
@@ -90,5 +93,6 @@ def export_train_label_snapshot(
             modified_labels=np.stack(modified_labels),
             train_predictions=np.stack(predictions),
         )
-    save_snapshot(Path(path), snapshot)
+    if path is not None:
+        save_snapshot(Path(path), snapshot)
     return snapshot

@@ -31,11 +31,21 @@ the ranks as one flat buffer before AdamW, and the dense DP gradient with
 the touched rows before SparseAdam, so that every rank takes the same
 update; the losses are summed and the Dice rows gathered. The separable
 warp (K1) warps each rank's own rows, as JAX's `shard_map` does.
+
+With a model axis as well (`parallel/tensor.py`), `data` is the data group
+of this rank's model index and every sum above spans it alone: the ranks of
+a model group hold the same rows, so a sum over the world would count the
+replicated DP gradients M times. A sharded parameter's gradient is its
+rank's slice; a replicated one's is the same on every rank of the model
+group, and is taken from its model rank 0, so that replicated parameters
+stay bitwise equal where the card's atomic adds (the upsampling's backward)
+round otherwise.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from ..core.config import DataParamMode, TrainConfig
 from ..ops.augment import AugmentDraws, AugmentParams, augment_sample_pair, check_order, draw_augment
@@ -44,6 +54,7 @@ from ..ops.mind import mindssc
 from ..ops.resample import interpolate_sample
 from ..ops.stacking import make_2d_stack_from_3d, make_3d_from_2d_stack
 from ..parallel.mesh import attach_data_group
+from ..parallel.tensor import replicated_parameters
 from .losses import dp_loss_fn, weighted_cross_entropy
 from .optim import set_lr, sparse_adam_update
 from .state import DeepStapleState
@@ -108,6 +119,8 @@ def make_train_step(model, config: TrainConfig, class_weights, fixed_weighting,
     batch holds this rank's rows of the global batch, `draws` (if given) its
     rows of the global draws (`rank_draws`), `generator` is seeded alike on
     every rank, and the metrics are the global batch's (dice (B_global, C)).
+    A model sharded by `parallel.tensor.shard_model` makes it a
+    tensor-parallel step over its model group as well.
     """
     use_dp = config.data_param_mode == DataParamMode.INSTANCE_PARAMS
     use_2d = config.use_2d_normal_to is not None
@@ -127,6 +140,8 @@ def make_train_step(model, config: TrainConfig, class_weights, fixed_weighting,
     fixed_weighting = torch.as_tensor(fixed_weighting, dtype=torch.float32).to(device)
     async_bn = getattr(model, "bn_mode", "batch") == "async"
     attach_data_group(model, data)
+    tp = getattr(model, "tp", None)
+    replicated = None if tp is None else {id(p) for p in replicated_parameters(model)}
 
     def total(share):
         return share if data is None else data.sum(share)
@@ -140,9 +155,16 @@ def make_train_step(model, config: TrainConfig, class_weights, fixed_weighting,
                           data)
 
     def apply_grads(state, params, grads, lr):
+        grads = list(grads)
         if data is not None:
             flat = data.sum(torch.cat([g.reshape(-1) for g in grads]))
             grads = [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads]), grads)]
+        rep = [i for i, p in enumerate(params) if id(p) in replicated] if replicated else []
+        if rep:
+            flat = torch.cat([grads[i].reshape(-1) for i in rep])
+            dist.broadcast(flat, src=tp.group.root, group=tp.group.group)
+            for i, f in zip(rep, flat.split([grads[i].numel() for i in rep])):
+                grads[i] = f.view_as(grads[i])
         for p, g in zip(params, grads):
             p.grad = g
         set_lr(state.optimizer, lr)

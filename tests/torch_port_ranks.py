@@ -11,14 +11,22 @@ the ranks run.
 Run as a script, this module is one rank:
 
     python tests/torch_port_ranks.py step <rank> <world> <store> <out_dir> [case,...]
+    python tests/torch_port_ranks.py tp <rank> <world> <store> <out_dir> [case,...]
     python tests/torch_port_ranks.py main <out_json> <main's argv ...>
+    python tests/torch_port_ranks.py main_warm <out_json> <main's argv ...>
 
 `step` runs the cases named (default: every case of `STEP_CASES`,
 `run_step_case`) and writes each
 rank's results to `<out_dir>/<case>_rank<r>.npz` (the tests run the same
-function in one process for the 1-rank reference); `main` runs
+function in one process for the 1-rank reference); `tp` runs 8 ranks as
+a model axis of 8 (the eval forward, `run_tp_forward`), then ranks 0-2 as a
+model axis of 3, then the grid of data 2 x model 4 (`TP_DATA`, `TP_MODEL`)
+through the step cases, written as `step` writes them; `main` runs
 `deep_staple_torch.main.main(argv)` and writes the rank's DP vector and
-what it wrote (the snapshot, the metrics file) to `<out_json>`.
+what it wrote (the snapshot, the metrics file) to `<out_json>`, and its
+model's state_dict and AdamW moments (its shards, with a model axis) to
+`<out_json>.npz`; `main_warm` does so with both optimizers warm from the
+start (`warm_create_state`).
 """
 
 from __future__ import annotations
@@ -56,6 +64,11 @@ STEP_CASES = {
                         dropout=0.0),
 }
 STEPS = 2
+# The tensor-parallel grid of the step cases: data 2 x model 4 on 8 ranks
+# (`tests/test_parallel.py:798-828`).
+TP_DATA, TP_MODEL = 2, 4
+# The eval forward of `tests/test_parallel.py:776-796`: (2, 16, 16, 12, 1).
+FORWARD_SHAPE = (2, 16, 16, 12, 1)
 
 
 def clean_env(threads: int = 1) -> dict:
@@ -149,17 +162,90 @@ def warm_adamw(optimizer):
                                   "exp_avg_sq": torch.full_like(p, 1e-4)}
 
 
-def run_step_case(case: str, data=None, steps: int = STEPS, perm=None) -> dict:
+def forward_model():
+    """The eval forward's model: `init_weights` at seed 1, then BatchNorm's
+    scale, bias and statistics drawn from a numpy seed, so that the sharded
+    statistics differ channel by channel."""
+    import torch
+
+    from deep_staple_torch.models.lraspp3d import MobileNetLRASPP3D, init_weights
+    from deep_staple_torch.models.norm import BatchNorm
+
+    model = MobileNetLRASPP3D(num_classes=2, use_checkpointing=False)
+    init_weights(model, torch.Generator().manual_seed(1))
+    rng = np.random.RandomState(2)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, BatchNorm):
+                n = mod.scale.shape[0]
+                mod.scale.copy_(torch.from_numpy(1 + 0.1 * rng.randn(n).astype(np.float32)))
+                mod.bias.copy_(torch.from_numpy(0.1 * rng.randn(n).astype(np.float32)))
+                mod.mean.copy_(torch.from_numpy(0.1 * rng.randn(n).astype(np.float32)))
+                mod.var.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32)))
+    return model.eval()
+
+
+def forward_input():
+    return np.random.RandomState(0).randn(*FORWARD_SHAPE).astype(np.float32)
+
+
+def run_tp_forward(group=None) -> np.ndarray:
+    """The eval forward's logits, the model sharded over `group` (a
+    `parallel.mesh.ModelGroup`) or whole."""
+    import torch
+
+    from deep_staple_torch.parallel.tensor import shard_model
+
+    model = forward_model()
+    if group is not None:
+        shard_model(model, group)
+    with torch.no_grad():
+        return model(torch.from_numpy(forward_input()))["out"].numpy()
+
+
+def warm_create_state(monkeypatch=None):
+    """Make the driver's `create_state` start both optimizers warm, in this
+    process (through pytest's `monkeypatch`, if given): AdamW as
+    `warm_adamw`, and the DP vector's SparseAdam as after 10 steps with
+    second moments of 1e-4 (`chip_smoke._warm`)."""
+    import torch
+
+    from deep_staple_torch.train import driver
+
+    create_state = driver.create_state
+
+    def warm(*a, **k):
+        state = create_state(*a, **k)
+        warm_adamw(state.optimizer)
+        o = state.dp_opt_state
+        state.dp_opt_state = o._replace(nu=torch.full_like(o.nu, 1e-4),
+                                        count=torch.full_like(o.count, 10))
+        return state
+
+    if monkeypatch is None:
+        driver.create_state = warm
+    else:
+        monkeypatch.setattr(driver, "create_state", warm)
+
+
+def run_step_case(case: str, data=None, steps: int = STEPS, perm=None, tp=None,
+                  ckpt_dir=None) -> dict:
     """`steps` steps of a case on this rank's rows (all rows without
     `data`); -> the first step's metrics, and the state after the last.
     `perm` (one rank) permutes the batch's rows and their augmentation
-    draws: the same arithmetic in another summation order."""
+    draws: the same arithmetic in another summation order. `tp` (a
+    `parallel.mesh.ModelGroup`) shards the model and AdamW's moments over
+    it; the state is then this rank's shards, and with `ckpt_dir` the state
+    after the last step is gathered and rank 0 writes it there as the
+    port's checkpoint (`pt/state.pt`) and as JAX's (`msgpack/state.msgpack`)."""
     import torch
 
     from deep_staple_torch.parallel.mesh import shard_batch
+    from deep_staple_torch.parallel.tensor import shard_train_state
     from deep_staple_torch.train.step import make_train_step
 
     cfg, model, state = start_state(case)
+    shard_train_state(state, tp)
     step = make_train_step(model, cfg, np.array([0.5, 1.5], np.float32),
                            np.full((DATASET_LEN,), 5.0, np.float32),
                            augment=STEP_CASES[case].get("augment", True), data=data)
@@ -180,40 +266,89 @@ def run_step_case(case: str, data=None, steps: int = STEPS, perm=None) -> dict:
             out.update({f"m_{n}": v.numpy() for n, v in metrics.items()})
     out.update({f"s_{n}": v.numpy() for n, v in state.model.state_dict().items()})
     out["dp"] = state.dp_params.numpy()
+    if ckpt_dir is not None:
+        import torch.distributed as dist
+
+        from deep_staple_torch.parallel.tensor import gather_train_state
+        from deep_staple_torch.train.checkpoint import save_checkpoint, save_jax_checkpoint
+        from deep_staple_torch.train.driver import make_model
+
+        full = gather_train_state(state, make_model(cfg, 2)[0])
+        if dist.get_rank() == 0:
+            save_checkpoint(Path(ckpt_dir) / "pt", full, cfg)
+            save_jax_checkpoint(Path(ckpt_dir) / "msgpack", full, cfg)
     return out
 
 
-def start_step_ranks(out: Path, cases, timeout: float = 240) -> Ranks:
-    """Two `step` ranks running `cases`, meeting through a store in `out`."""
-    return Ranks([[sys.executable, str(REPO / "tests" / "torch_port_ranks.py"), "step", str(r),
-                   "2", str(out / "store"), str(out), ",".join(cases)] for r in range(2)],
-                 timeout)
+def start_step_ranks(out: Path, cases, timeout: float = 240, mode: str = "step",
+                     world: int = 2) -> Ranks:
+    """`world` ranks of `mode` ('step': 2, 'tp': 8) running `cases`, meeting
+    through a store in `out`."""
+    return Ranks([[sys.executable, str(REPO / "tests" / "torch_port_ranks.py"), mode, str(r),
+                   str(world), str(out / "store"), str(out), ",".join(cases)]
+                  for r in range(world)], timeout)
 
 
 def main(argv):
     import torch
 
     torch.set_num_threads(1)
-    if argv[0] == "main":
+    if argv[0] in ("main", "main_warm"):
         from deep_staple_torch.main import main as train_main
 
+        if argv[0] == "main_warm":
+            warm_create_state()
         res = train_main(argv[2:])[0]
+        state = res["state"]
+        names = [n for n, _ in state.model.named_parameters()]
+        moments = {f"opt.{names[i]}.{k}": v.numpy() for i, s in
+                   state.optimizer.state_dict()["state"].items()
+                   for k, v in s.items() if k != "step"}
+        np.savez(argv[1] + ".npz", **{f"model.{k}": v.numpy()
+                                      for k, v in state.model.state_dict().items()}, **moments)
         Path(argv[1]).write_text(json.dumps({
             "dp": res["state"].dp_params.tolist(),
             "snapshot": None if res["snapshot_path"] is None else str(res["snapshot_path"]),
             "writes_metrics": res["writer"]._jsonl is not None,
+            "losses": [h["losses/loss_fold0"] for h in res["writer"].history
+                       if "losses/loss_fold0" in h],
         }))
         return
     mode, rank, world, store, out_dir = argv[:5]
-    if mode != "step":
+    if mode not in ("step", "tp"):
         raise SystemExit(f"unknown mode {mode!r}")
     from deep_staple_torch.parallel.multihost import init_distributed
 
     data = init_distributed(int(world), int(rank), f"file://{store}", device="cpu", timeout_s=120)
+    if mode == "tp":
+        tp_forwards(int(rank), Path(out_dir))
     cases = argv[5].split(",") if len(argv) > 5 else list(STEP_CASES)
+    tp = None
+    if mode == "tp":
+        from deep_staple_torch.parallel.mesh import make_grid
+
+        data, tp = make_grid("cpu", TP_MODEL)
     for case in cases:
-        np.savez(Path(out_dir) / f"{case}_rank{rank}.npz", **run_step_case(case, data))
+        ckpt = Path(out_dir) / f"{case}_ckpt" if tp is not None else None
+        np.savez(Path(out_dir) / f"{case}_rank{rank}.npz",
+                 **run_step_case(case, data, tp=tp, ckpt_dir=ckpt))
     torch.distributed.destroy_process_group()
+
+
+def tp_forwards(rank: int, out_dir: Path):
+    """The eval forward on a model axis of 8 (every rank), then of 3 (ranks
+    0-2; every rank makes the group), each rank's logits to
+    `fwd<M>_rank<r>.npy`."""
+    import torch.distributed as dist
+
+    from deep_staple_torch.parallel.mesh import ModelGroup, make_grid
+
+    np.save(out_dir / f"fwd8_rank{rank}.npy", run_tp_forward(make_grid("cpu", 8)[1]))
+    three = dist.new_group([0, 1, 2])
+    if rank < 3:
+        np.save(out_dir / f"fwd3_rank{rank}.npy",
+                run_tp_forward(ModelGroup(rank=rank, size=3, group=three, root=0)))
+    dist.barrier()
 
 
 if __name__ == "__main__":
