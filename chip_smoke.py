@@ -66,7 +66,12 @@ give it, and drives both main paths at full size:
     data ranks of a model index, the first step's metrics against 1 rank),
     and `main` trains an epoch over 4 processes on the same grid; the
     depthwise kernels are checked at every channel slice of a model axis of
-    2, 4 and 8, and timed at 2 and 4;
+    2, 4 and 8, and timed at 2 and 4; spatial sharding: `serve --mesh-space
+    2` with the float32 and the bfloat16 checkpoint and `serve --mesh-data
+    2 --mesh-space 2` (each volume's H axis split over 2 ranks sharing the
+    card) against one process at the data ranks' batch, with each rank's
+    volumes/s, peak memory, launches and halo bytes; the depthwise forward
+    checked on a space rank's window of 2 and 4 ranks, and timed at 2;
   * registration: `affine_register` on a 256x256x100 fixed volume and a
     256x256x120 moving one made from it by a known affine, at the default
     scales and iterations, held to `tests/test_register.py`'s bound and
@@ -141,6 +146,19 @@ def tp_dw(M):
 
 
 TP_DW = sorted({sh for M in TP_SPLITS for sh in tp_dw(M)} - set(TRAIN_DW))
+# Spatial sharding (`parallel/spatial.py`) gives the depthwise forward a
+# rank's window of H: its slab at the call's level (H / S rows: serving's
+# extents, 128 and 64, halve evenly) and one output more below, which the
+# layer crops, so H / S + 2 rows at either stride (at stride 2 the window
+# starts two rows below the slab and ends at its top). The serving calls at
+# S = 2 and 4, checked; at 2, timed. `serve --mesh-space` runs at S = 2.
+SPACE_SPLITS, SPACE_TIMED = (2, 4), (2,)
+
+
+def space_dw(S):
+    """The ten depthwise calls of one serving forward (batch 4) on a rank of
+    a space axis of S."""
+    return [((B, D, H // S + 2, W, C), s) for (B, D, H, W, C), s in SERVING_DW]
 # Odd extents and channel counts that are not a multiple of the vector width.
 # Then shapes that cut the forward kernel's tiles raggedly (64-byte channel
 # tiles, 8 x 16 outputs of (y, x) at stride 1 and 8 x 8 at stride 2, 4 rows
@@ -277,6 +295,8 @@ PATH_KERNELS = {
                                         "depthwise_conv3d_grad_w", "sep_warp_pass")
        for r in range(4) for path in ("step", "train_dl")},
     "parallel_tp_consensus": ("staple_em_iter",),
+    **{f"parallel_{tag}_rank{r}": ("depthwise_conv3d_fwd",)
+       for tag in ("space2", "space2_bf16", "data2_space2") for r in range(4)},
     "parallel_pipeline": ("depthwise_conv3d_fwd", "depthwise_conv3d_grad_x",
                           "depthwise_conv3d_grad_w", "sep_warp_pass"),
 }
@@ -492,31 +512,35 @@ def _sass_conversions(so):
 
 def phase_kernels(rec, seed):
     """The forward kernel against depthwise_conv3d_plain on the card, at
-    every shape serving gives it (batch 4) and the edge shapes."""
+    every shape serving gives it (batch 4), whole and on a rank's window of
+    a space axis of 2 and 4, and the edge shapes."""
     import torch
 
     from deep_staple_torch.ops.conv3d_dw import depthwise_conv3d_fwd, depthwise_conv3d_plain
 
     gen = torch.Generator(device=DEV).manual_seed(seed)
-    worst = {}
+    worst, worst_space = {}, {}
+    space = sorted({sh for S in SPACE_SPLITS for sh in space_dw(S)})
     failures = []
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        for shape, stride in sorted(set(SERVING_DW)) + EDGE_DW:
+        for shape, stride in sorted(set(SERVING_DW)) + space + EDGE_DW:
             x = torch.randn(shape, generator=gen, device=DEV).to(dtype)
             w = torch.randn(27, shape[-1], generator=gen, device=DEV)
             with torch.no_grad():
                 got = depthwise_conv3d_fwd(x, w, stride)
                 ref32 = depthwise_conv3d_plain(x.float(), w, stride)
                 ok, max_abs, tol = compare(got, ref32, dtype)
-            worst[dname] = max(worst.get(dname, 0.0), max_abs)
+            into = worst_space if (shape, stride) in space else worst
+            into[dname] = max(into.get(dname, 0.0), max_abs)
             log(f"[kernels] fwd {dname:8s} {str(tuple(shape)):22s} s{stride} max_abs {max_abs:.3e} "
-                f"({tol}) {'ok' if ok else 'FAIL'}")
+                f"({tol}) {'ok' if ok else 'FAIL'}{' space slab' if into is worst_space else ''}")
             if not ok:
                 failures.append(("fwd", dname, shape, stride))
             del x, w, got, ref32
             torch.cuda.empty_cache()
     rec.setdefault("kernel_check", {})["depthwise_conv3d_fwd.serve"] = worst
+    rec["kernel_check"]["depthwise_conv3d_fwd.space_slab"] = worst_space
     if failures:
         raise AssertionError(f"kernel disagrees with its plain version: {failures}")
 
@@ -763,12 +787,9 @@ def phase_serve(rec, inputs, ckpts):
         counts = read_counts()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         launches = counts["depthwise_conv3d_fwd"]
-        if result.executions != 2 or launches != 10 * result.executions or \
-                sum(counts.values()) != launches:
-            raise AssertionError(
-                f"{dtype}: launches {counts} for {result.executions} forwards "
-                "(expected 10 forward launches per forward, 2 forwards, nothing else)"
-            )
+        if result.executions != 2:
+            raise AssertionError(f"{dtype}: {result.executions} forwards, not 2")
+        _check_forward_launches(dtype, counts, result.executions)
         fg = []
         for p_in, p_out in zip(inputs, result.paths):
             seg = load_nifti(p_out).data
@@ -2988,6 +3009,21 @@ PAR_RTOL, PAR_ATOL = 2e-4, 1e-5
 # over 2.2 M voxels a row; 1e-5.
 PP_RTOL = {1: 1e-6, 2: 1e-5}
 PAR_TIMEOUT = 600
+# `serve --mesh-space` (`parallel/spatial.py`) at the serve CLI's defaults
+# (SERVE_SIZE, crop, eval x2.0, batch 4; 6 volumes, 2 forwards): (tag,
+# dtype, data axis, space axis), each against one process at the data
+# ranks' batch, every volume's eval-scale logits compared. float32: where
+# the ranks' logits are one process's bit for bit, the label maps byte for
+# byte. cuBLAS rounds a 1x1 conv's matmul otherwise at some row counts (on
+# an H100 80GB HBM3: at 2 rows a data rank, block 6's projection of (2, 64,
+# 32, 25) rows, not at 4 rows), and near-ties then flip: there the logits
+# are held within SPACE_F32_RTOL of the largest |logit| (the CPU test's 1e-5,
+# on the logits' scale), and the flips and near-ties are counted. bfloat16,
+# as the CPU test holds it: logits within SPACE_BF16_ATOL of one process,
+# argmax flips only where one process's top-two margin is under it.
+SPACE_SERVES = (("space2", "float32", 1, 2), ("space2_bf16", "bfloat16", 1, 2),
+                ("data2_space2", "float32", 2, 2))
+SPACE_F32_RTOL, SPACE_BF16_ATOL = 1e-5, 2e-2
 
 
 def _warm(state):
@@ -3061,8 +3097,8 @@ def _sync_dev(dev):
 
 def parallel_rank(kind, out_json, *argv):
     """One rank of the parallel phase, in its own process (`kind`: 'step',
-    'tp_step', 'main' or 'serve'); writes what the phase checks to
-    `out_json`."""
+    'tp_step', 'main', 'serve' or 'space_serve'); writes what the phase
+    checks to `out_json`."""
     import torch
 
     from deep_staple_torch.core.device import resolve_device
@@ -3077,7 +3113,7 @@ def parallel_rank(kind, out_json, *argv):
         world = init_distributed(TP_DATA * TP_MODEL if tp else PAR_RANKS, int(rank),
                                  f"file://{store}", device=DEV)
         if tp:
-            res = _par_steps(*make_grid(world.device, TP_MODEL), seed=int(seed),
+            res = _par_steps(*make_grid(world.device, TP_MODEL)[:2], seed=int(seed),
                              out_dir=out_dir)
         else:
             res = _par_steps(world, seed=int(seed), out_dir=out_dir)
@@ -3095,6 +3131,8 @@ def parallel_rank(kind, out_json, *argv):
                "writes_metrics": r["writer"]._jsonl is not None,
                "losses": [h["losses/loss_fold0"] for h in r["writer"].history
                           if "losses/loss_fold0" in h]}
+    elif kind == "space_serve":
+        res = _space_serve_rank(*argv)
     else:
         from deep_staple_torch.serve import main
 
@@ -3105,12 +3143,79 @@ def parallel_rank(kind, out_json, *argv):
     Path(out_json).write_text(json.dumps(res))
 
 
+def _space_serve_rank(ckpt, out_dir, batch, mesh_data, mesh_space, logits_out, *inputs):
+    """One rank of `serve --mesh-data D --mesh-space S` (torchrun's
+    environment): `serve` with its launches, halo bytes and peak memory;
+    then the logits of its rows of H of every volume it served, batched as
+    `serve` batched them, to `<logits_out>.rank<r>.npz` (and the rows to
+    `.json`)."""
+    import torch
+    import torch.distributed as dist
+
+    from deep_staple_torch.core.device import resolve_device
+    from deep_staple_torch.parallel.mesh import make_grid
+    from deep_staple_torch.parallel.spatial import window_rows
+    from deep_staple_torch.serve import serve
+
+    dev = resolve_device(DEV)
+    D, S, batch = int(mesh_data), int(mesh_space), int(batch)
+    reset_counts()
+    window_rows.bytes = window_rows.calls = 0
+    r = serve(ckpt, list(inputs), out_dir, batch_size=batch, size=SERVE_SIZE, mesh_data=D,
+              mesh_space=S, device=None if dev.type == "cuda" else DEV)
+    _sync_dev(dev)
+    res = {"launches": read_counts(), "seconds": r.seconds, "volumes": len(r.paths),
+           "executions": r.executions, "halo_bytes": window_rows.bytes,
+           "halo_exchanges": window_rows.calls,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else 0.0}
+    _, _, space = make_grid(dev, 1, S)
+    rank = dist.get_rank()
+    logits, rows = _serve_logits(ckpt, list(inputs), batch, D, rank // S, space)
+    np.savez(f"{logits_out}.rank{rank}.npz", **{f"v{i}": y for i, y in logits.items()})
+    Path(f"{logits_out}.rank{rank}.json").write_text(json.dumps(rows))
+    dist.barrier()
+    dist.destroy_process_group()
+    return res
+
+
+def _serve_logits(ckpt, inputs, batch, D=1, d=0, space=None):
+    """The float32 logits of the eval forward on every volume as `serve`
+    batches them at `batch` (SERVE_SIZE, eval x2.0; the last chunk padded
+    with its last volume; data rank d of D takes its rows of each chunk),
+    on the card; with a space group this rank's rows of H -> ({input index:
+    logits (D, rows, W, 2)}, [first row, end])."""
+    import torch
+
+    from deep_staple_torch.data.nifti import load_nifti
+    from deep_staple_torch.models.lraspp3d import attach_space_group
+    from deep_staple_torch.ops.resample import interpolate_sample
+    from deep_staple_torch.serve import load_serving_state, preprocess
+
+    model, config, _, _ = load_serving_state(ckpt, DEV)
+    attach_space_group(model, space)
+    out, rows = {}, None
+    for s in range(0, len(inputs), batch):
+        chunk = inputs[s:s + batch]
+        idx = [min(i, len(chunk) - 1) for i in range(batch)][d * batch // D:(d + 1) * batch // D]
+        img = np.stack([preprocess(load_nifti(chunk[i]).get_fdata(), config, SERVE_SIZE)
+                        for i in idx])
+        with torch.inference_mode():
+            img, _ = interpolate_sample(torch.from_numpy(img).to(DEV), None, 2.0)
+            y = model(img[..., None])["out"].float().cpu().numpy()
+        for j, i in enumerate(idx):
+            out.setdefault(s + i, y[j])
+        rows = [0, y.shape[2]] if space is None else [model.space.axes[0].start,
+                                                      model.space.axes[0].stop]
+    del model
+    return out, rows
+
+
 def _launch_ranks(kind, tmp, argvs, envs=None):
     """Start one `parallel_rank` process a rank, wait for all (each within
     PAR_TIMEOUT); -> their results. A rank that fails fails the phase."""
     env = dict(os.environ, PYTHONPATH=str(REPO), PYTHONUNBUFFERED="1")
     # The rank sees this process's device and sizes (a CPU rehearsal's too).
-    settings = {k: globals()[k] for k in ("DEV", "TRAIN_BASE", "DATASET_LEN")}
+    settings = {k: globals()[k] for k in ("DEV", "TRAIN_BASE", "DATASET_LEN", "SERVE_SIZE")}
     t = time.perf_counter()
     procs, outs = [], []
     for r, argv in enumerate(argvs):
@@ -3132,12 +3237,15 @@ def _launch_ranks(kind, tmp, argvs, envs=None):
                 p.kill()
                 p.communicate()
     wall = time.perf_counter() - t
-    for r, (p, out) in enumerate(zip(procs, outs)):
+    for r, out in enumerate(outs):
         for line in out.splitlines():
-            if line.startswith(("distributed:", "served", "Pipeline", "### Log", "dice_mean")):
+            if line.startswith(("distributed:", "served", "serving on", "Pipeline", "### Log",
+                                "dice_mean")):
                 log(f"[parallel] {kind} rank {r}: {line}")
-        if p.returncode != 0:
-            raise AssertionError(f"parallel {kind} rank {r}: rc {p.returncode}\n{out[-4000:]}")
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if failed:  # every failed rank's end: the first may only report its peer's exit
+        raise AssertionError("\n".join(f"parallel {kind} rank {r}: rc {procs[r].returncode}\n"
+                                       f"{outs[r][-3000:]}" for r in failed))
     return [json.loads((tmp / f"{kind}{r}.json").read_text()) for r in range(len(argvs))], wall
 
 
@@ -3264,10 +3372,9 @@ def phase_parallel(rec, seed, root):
         ranks, wall = _launch_ranks("serve", tmp, [args] * PAR_RANKS, envs)
         for r, res in enumerate(ranks):
             _record_path(rec, f"parallel_serve_rank{r}", res["launches"])
-        maps = {}
-        for bs in (2, 4):
-            serve(ckpt, inputs, tmp / f"serve1_b{bs}", batch_size=bs, size=SERVE_SIZE, device=DEV)
-            maps[bs] = _seg_maps(tmp / f"serve1_b{bs}")
+        one = {(dtype, bs): _serve_one(ckpts_serve[dtype], inputs, tmp / f"serve1_{dtype}_b{bs}", bs)
+               for dtype, bs in (("float32", 2), ("float32", 4), ("bfloat16", 4))}
+        maps = {bs: one[("float32", bs)]["maps"] for bs in (2, 4)}
         two = _seg_maps(tmp / "serve2")
         if list(two) != list(maps[2]) or any(two[k] != maps[2][k] for k in two):
             raise AssertionError("parallel serve: label maps differ from one process at batch 2")
@@ -3283,6 +3390,9 @@ def phase_parallel(rec, seed, root):
             f"(rank 0's loop, write-out included; {wall:.1f} s launch to exit); label maps "
             f"byte-equal to one process at the ranks' batch of 2; against one process at batch "
             f"4, {diff4} of {out['serve']['bytes']} bytes differ")
+
+        # --- serving over a space axis, against one process ---
+        out["space_serve"] = _par_space_serve(rec, tmp, inputs, ckpts_serve, one)
         shutil.rmtree(WORK, ignore_errors=True)
 
         # --- the doctor's mesh probe ---
@@ -3290,6 +3400,121 @@ def phase_parallel(rec, seed, root):
         if not check_mesh(300):
             raise AssertionError("doctor: the 2-rank gloo mesh probe failed")
         out["doctor_mesh_s"] = time.perf_counter() - t
+
+
+def _serve_one(ckpt, inputs, out_dir, batch):
+    """`serve` in this process at `batch` -> its maps, volumes/s, launches
+    and peak memory above what this process held before (GB)."""
+    import torch
+
+    from deep_staple_torch.serve import serve
+
+    dev = torch.device(DEV)
+    _sync_dev(dev)
+    held = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    r = serve(ckpt, inputs, out_dir, batch_size=batch, size=SERVE_SIZE, device=DEV)
+    _sync_dev(dev)
+    peak = (torch.cuda.max_memory_allocated() - held) / 1e9 if dev.type == "cuda" else 0.0
+    return {"maps": _seg_maps(out_dir), "volumes_per_s": len(r.paths) / r.seconds,
+            "launches": read_counts(), "peak_mem_gb": peak, "executions": r.executions}
+
+
+def _check_forward_launches(what, counts, forwards):
+    """10 depthwise forward launches a serving forward, and nothing else."""
+    k2 = counts["depthwise_conv3d_fwd"]
+    if k2 != 10 * forwards or sum(counts.values()) != k2:
+        raise AssertionError(f"{what}: launches {counts} for {forwards} forwards (10 K2 "
+                             "launches a forward, nothing else)")
+
+
+def _par_space_serve(rec, tmp, inputs, ckpts, one):
+    """`serve --mesh-space 2` with the float32 and the bfloat16 checkpoint
+    and `--mesh-data 2 --mesh-space 2` with float32 (SPACE_SERVES), ranks
+    sharing the card, each against one process at the data ranks' batch
+    (`one`, from `_serve_one`), with every volume's eval-scale logits
+    compared (`_serve_logits`): float32 maps byte for byte where the ranks'
+    logits are one process's bit for bit, else (the libraries round a slab's
+    matmuls otherwise) the logits within SPACE_F32_RTOL of the largest;
+    bfloat16 logits within SPACE_BF16_ATOL, flips only below it. Per rank
+    volumes/s, peak memory, K2 launches (10 a forward) and the halo bytes a
+    forward."""
+    import torch
+
+    res = {}
+    for tag, dtype, D, S in SPACE_SERVES:
+        bs = 4 // D
+        ref = one[(dtype, bs)]
+        if DEV == "cuda":  # the ranks share the card with this process's cache
+            torch.cuda.empty_cache()
+            log(f"[parallel] {tag}: this process holds {torch.cuda.memory_reserved() / 1e9:.2f} "
+                f"GB of the card, {torch.cuda.mem_get_info()[0] / 1e9:.2f} GB free")
+        port, n = _free_port(), D * S
+        logits_out = str(tmp / f"{tag}_logits")
+        args = [str(ckpts[dtype]), str(tmp / tag), "4", str(D), str(S), logits_out, *inputs]
+        envs = [dict(RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE=str(n), LOCAL_WORLD_SIZE=str(n),
+                     MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)) for r in range(n)]
+        ranks, wall = _launch_ranks("space_serve", tmp, [args] * n, envs)
+        want, _ = _serve_logits(ckpts[dtype], inputs, bs)
+        scale = max(float(np.abs(w).max()) for w in want.values())
+        gap, flips, near, at_flips, seen = 0.0, 0, 0, 0.0, set()
+        bound = SPACE_BF16_ATOL if dtype == "bfloat16" else SPACE_F32_RTOL * scale
+        for r in range(n):
+            lo, hi = json.loads(Path(f"{logits_out}.rank{r}.json").read_text())
+            with np.load(f"{logits_out}.rank{r}.npz") as got:
+                for k in got.files:
+                    i = int(k[1:])
+                    w = want[i][:, lo:hi]
+                    g = got[k]
+                    margin = np.abs(w[..., 1] - w[..., 0])
+                    flip = g.argmax(-1) != w.argmax(-1)
+                    gap = max(gap, float(np.abs(g - w).max()))
+                    flips += int(flip.sum())
+                    near += int((margin < 2 * bound).sum())
+                    at_flips = max(at_flips, float(margin[flip].max()) if flip.any() else 0.0)
+                    seen.add((i, lo))
+        if len(seen) != len(inputs) * S:
+            raise AssertionError(f"{tag}: logits of {sorted(seen)}, not every volume's slabs")
+        maps = _seg_maps(tmp / tag)
+        differ = int(sum(np.count_nonzero(np.frombuffer(maps[k], np.uint8)
+                                          != np.frombuffer(ref["maps"][k], np.uint8))
+                         for k in maps if k in ref["maps"]))
+        exact = gap == 0.0
+        row = {"ranks": ranks, "launch_wall_s": wall,
+               "one_process": {k: v for k, v in ref.items() if k != "maps"},
+               "logit_gap": gap, "logit_scale": scale, "logits_bitwise_equal": exact,
+               "argmax_flips": flips, "max_margin_at_flips": at_flips,
+               "near_ties": near, "near_tie_margin": 2 * bound, "map_bytes_differing": differ,
+               "volumes_per_s": ranks[0]["volumes"] / ranks[0]["seconds"]}
+        res[tag] = row
+        for r, rr in enumerate(ranks):
+            _record_path(rec, f"parallel_{tag}_rank{r}", rr["launches"])
+            k2 = rr["launches"]["depthwise_conv3d_fwd"]
+            log(f"[parallel] {tag} rank {r} (data {r // S}, space {r % S}): "
+                f"{rr['volumes']} volumes in {rr['seconds']:.2f} s "
+                f"({rr['volumes'] / rr['seconds']:.3f} volumes/s written; one process "
+                f"{ref['volumes_per_s']:.3f}), peak {rr['peak_mem_gb']:.2f} GB (one process at "
+                f"batch {bs} {ref['peak_mem_gb']:.2f}), K2 launches {k2} in {rr['executions']} "
+                f"forwards, halo {rr['halo_bytes'] / rr['executions'] / 1e6:.1f} MB a forward "
+                f"in {rr['halo_exchanges'] // rr['executions']} exchanges")
+            _check_forward_launches(f"{tag} rank {r}", rr["launches"], rr["executions"])
+        log(f"[parallel] {tag}: {len(maps)} maps, {differ} bytes differ from one process at "
+            f"batch {bs}; the eval-scale logits of every volume "
+            f"{'bitwise equal to' if exact else f'within {gap:.3e} of'} one process's (largest "
+            f"|logit| {scale:.3f}, bound {bound:.3e}), {flips} argmax flips (largest margin at "
+            f"a flip {at_flips:.3e}; {near} voxels with a margin under {2 * bound:.3e}); "
+            f"{wall:.1f} s launch to exit")
+        if list(maps) != list(ref["maps"]):
+            raise AssertionError(f"{tag}: maps {list(maps)} against {list(ref['maps'])}")
+        if dtype == "float32" and exact and differ:
+            raise AssertionError(f"{tag}: {differ} bytes of the label maps differ from one process")
+        if gap > bound or (dtype == "bfloat16" and at_flips >= bound):
+            raise AssertionError(f"{tag}: logits {gap} from one process, a flip at margin "
+                                 f"{at_flips} (bound {bound})")
+        del want
+    return res
 
 
 def _par_tp_step(rec, seed, tmp, one):
@@ -3761,7 +3986,8 @@ def phase_times(rec, seed):
     aten.convolution_backward(groups=C) with the input or the weight
     gradient selected for the backward. The separable warp has no such call.
     The training rows again at a rank's channel slice of a model axis of 2
-    and 4 (`train_m2`, `train_m4`; the plain version timed once)."""
+    and 4 (`train_m2`, `train_m4`), the serving rows on a rank's window of a
+    space axis of 2 (`serve_s2`); the plain version timed once there."""
     import torch
     import torch.nn.functional as F
 
@@ -3773,7 +3999,8 @@ def phase_times(rec, seed):
     saved = read_counts()
     times = {name: {} for name in KERNELS}
     paths = [("serve", SERVING_DW), ("train", TRAIN_DW)] + [(f"train_m{M}", tp_dw(M))
-                                                            for M in TP_TIMED]
+                                                            for M in TP_TIMED] \
+        + [(f"serve_s{S}", space_dw(S)) for S in SPACE_TIMED]
     for path, shapes in paths:
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
@@ -3812,7 +4039,7 @@ def phase_times(rec, seed):
                 with torch.no_grad():
                     for name, (kfn, pfn, lfn) in entries:
                         row = {"shape": list(shape), "stride": stride, **_time_row(
-                            kfn, pfn, lfn, io, ops, plain_reps=1 if "_m" in path else 3)}
+                            kfn, pfn, lfn, io, ops, plain_reps=1 if "_" in path else 3)}
                         times[name].setdefault(path, {}).setdefault(dname, []).append(row)
                         log(f"[times] {name:24s} {dname:8s} {str(tuple(shape)):22s} s{stride} "
                             f"kernel {row['ms']:8.3f} ms bound {row['bound_ms']:7.3f} ms "
@@ -3949,6 +4176,13 @@ def summary_line(rec):
         if tp:
             entry["tp_slices"] = tp
             entry["tp_slice_max_abs_err"] = checks.get(f"{name}.tp_slice")
+        # A rank's window of a space axis of S: one serving forward's ten
+        # calls at H / S + 2 rows.
+        space = {f"s{S}": {d: _sums(r) for d, r in rows[f"serve_s{S}"].items()}
+                 for S in SPACE_TIMED if f"serve_s{S}" in rows}
+        if space:
+            entry["space_slabs"] = space
+            entry["space_slab_max_abs_err"] = checks.get(f"{name}.space_slab")
         entries.append(entry)
     return {"kernels": entries}
 

@@ -35,6 +35,19 @@ residual, the ASPP, the head) passes its input through `copy_to_model`
 group (`row_group`) before its bias. The partial products of a bfloat16
 model are summed in float32 and rounded once, as one rank's conv rounds
 its float32 accumulation once.
+
+Spatial sharding (`attach_space_group`, `parallel/spatial.py`): a model
+with a space group takes the whole volume on every rank of the group and
+returns this rank's slab of the logits, H cut by `spatial.slab_map`. Each
+layer whose window crosses the slab's edge reads its neighbours' rows
+first: the dense 3x3x3 convs (block 0's stride-2 conv, the ASPP's dilated
+branches, the conv head) run `F.conv3d` without H padding on the window,
+a depthwise conv runs K2 on the window and crops the rows computed against
+K2's own zero pad; the two global means are sums over the group; the
+head's resize and the final upsample take the global extents
+(`spatial.resize_h`). Eval only: training over a space axis is slice 6d.
+The global means are summed in float64 with or without a space group, so
+that both round the same mean.
 """
 
 from __future__ import annotations
@@ -47,7 +60,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.conv3d_dw import depthwise_conv3d
-from ..ops.resample import resize_nd
+from ..ops.resample import resize_nd, resize_ndhwc
+from ..parallel.spatial import SpacePlan, conv_windows, resize_h, space_mean, window_rows
 from ..parallel.tensor import copy_to_model, reduce_from_model
 from . import remat
 from .norm import BatchNorm
@@ -66,10 +80,12 @@ def _to_ndhwc(x):
     return x.permute(0, 2, 3, 4, 1)
 
 
-def _resize_ndhwc(x, out_spatial):
-    """Linear (align_corners=False) resize of an NDHWC tensor's spatial axes."""
-    y = resize_nd(_to_ncdhw(x), tuple(out_spatial), mode="linear", align_corners=False)
-    return _to_ndhwc(y).contiguous()
+def _resize_to(high, low, space):
+    """The head's resize of `high` (the stride-2 grid) to `low`'s (stride
+    4); on a spatially sharded model, this rank's rows of the global grid."""
+    if space is None:
+        return resize_ndhwc(high, low.shape[1:4])
+    return resize_h(high, space.axes[1], space.axes[2], (low.shape[1], low.shape[3]))
 
 
 class Conv3d(nn.Module):
@@ -88,6 +104,10 @@ class Conv3d(nn.Module):
         # replicated.
         self.row_group = None
         self.in_index = None
+        # A 3x3x3 conv of a spatially sharded model: its SpacePlan, and the
+        # H grid (0, 1, 2: the input, stride 2, stride 4) of its input.
+        self.space = None
+        self.level = 0
 
     def forward(self, x):
         w = self.kernel.to(x.dtype)
@@ -99,6 +119,13 @@ class Conv3d(nn.Module):
             y = x @ w2
             return y if b is None else y.add_(b)
         pad = self.dilation * (self.k // 2)
+        if self.space is not None:
+            # This rank's output rows from its window of the input, which
+            # holds the rows the conv reads beyond the slab: no H padding.
+            src = self.space.axes[self.level]
+            dst = self.space.axes[self.level + (self.stride == 2)]
+            x = window_rows(x, src, conv_windows(src, dst, self.stride, self.dilation, False))
+            pad = (pad, 0, pad)
         y = F.conv3d(_to_ncdhw(x), w, b, self.stride, pad, self.dilation)
         return _to_ndhwc(y).contiguous()
 
@@ -125,6 +152,8 @@ class DepthwiseConv3D(nn.Module):
         self.stride = stride
         self.dtype = dtype
         self.kernel = nn.Parameter(torch.zeros(27, features))
+        self.space = None  # as Conv3d's
+        self.level = 0
 
     def forward(self, x):
         w = self.kernel
@@ -132,7 +161,15 @@ class DepthwiseConv3D(nn.Module):
             # As in JAX, the weights are cast to the compute dtype before the
             # float32 tap accumulation.
             w = w.to(self.dtype).float()
-        return depthwise_conv3d(x, w, self.stride)
+        if self.space is None:
+            return depthwise_conv3d(x, w, self.stride)
+        # K2 on this rank's window, which starts one output below the slab's
+        # first (that output, computed against K2's own zero pad, is cropped).
+        src = self.space.axes[self.level]
+        dst = self.space.axes[self.level + (self.stride == 2)]
+        xw = window_rows(x, src, conv_windows(src, dst, self.stride, 1, True))
+        y = depthwise_conv3d(xw, w, self.stride)
+        return y[:, :, 1:1 + dst.stop - dst.start].contiguous()
 
 
 class _ReLU6(torch.autograd.Function):
@@ -248,6 +285,7 @@ class ASPP3D(nn.Module):
         self.dropout_rate = dropout_rate
         self.data = None  # the data group of a data-parallel step
         self.model_group = None  # a column region of a model-sharded model
+        self.space = None  # the SpacePlan of a spatially sharded model (stride 4)
         self.n_rates = len(atrous_rates)
         kw = dict(act="relu", dtype=dtype, bn_mode=bn_mode)
         self.ConvBN_0 = ConvBN(in_features, out_channels, kernel=1, **kw)
@@ -263,7 +301,7 @@ class ASPP3D(nn.Module):
         n = self.n_rates
         x = copy_to_model(x, self.model_group)
         branches = [getattr(self, f"ConvBN_{j}")(x, train) for j in range(n + 1)]
-        pooled = x.mean(dim=(1, 2, 3), keepdim=True)
+        pooled = space_mean(x, None if self.space is None else self.space.axes[2])
         pooled = getattr(self, f"ConvBN_{n + 1}")(pooled, train)
         branches.append(pooled.expand(*x.shape[:-1], pooled.shape[-1]))
         y = getattr(self, f"ConvBN_{n + 2}")(torch.cat(branches, dim=-1), train)
@@ -303,14 +341,15 @@ class LRASPPHead3D(nn.Module):
         self.Conv_1 = Conv3d(low_channels, num_classes, use_bias=True)
         self.Conv_2 = Conv3d(inter_channels, num_classes, use_bias=True)
         self.model_group = None  # a column region of a model-sharded model
+        self.space = None  # the SpacePlan of a spatially sharded model
 
     def forward(self, low, high, train: bool = False):
         high = copy_to_model(high, self.model_group)
         x = self.ConvBN_0(high, train)
-        s = self.Conv_0(high.mean(dim=(1, 2, 3), keepdim=True))
+        s = self.Conv_0(space_mean(high, None if self.space is None else self.space.axes[1]))
         x = x * torch.sigmoid(s)
         # A downsample: the reference keeps torchvision's inverted naming.
-        x = _resize_ndhwc(x, low.shape[1:4])
+        x = _resize_to(x, low, self.space)
         return self.Conv_1(low).add_(self.Conv_2(x))
 
 
@@ -325,9 +364,10 @@ class ConvHead3D(nn.Module):
         self.ConvBN_0 = ConvBN(low_channels + high_channels, 64, kernel=1, **kw)
         self.ConvBN_1 = ConvBN(64, 64, kernel=3, **kw)
         self.Conv_0 = Conv3d(64, num_classes, use_bias=True)
+        self.space = None  # the SpacePlan of a spatially sharded model
 
     def forward(self, low, high, train: bool = False):
-        x = torch.cat([low, _resize_ndhwc(high, low.shape[1:4])], dim=-1)
+        x = torch.cat([low, _resize_to(high, low, self.space)], dim=-1)
         return self.Conv_0(self.ConvBN_1(self.ConvBN_0(x, train), train))
 
 
@@ -363,12 +403,20 @@ class MobileNetLRASPP3D(nn.Module):
         self.aspp = ASPP3D(OUT_CHANNELS[-1], dropout_rate=dropout_rate, **kw)
         head_cls = LRASPPHead3D if self.head_type == "lraspp" else ConvHead3D
         self.head = head_cls(num_classes, 128, OUT_CHANNELS[1], **kw)
+        self.space = None  # the SpacePlan of a spatially sharded model
 
     def forward(self, x, train: bool = False, generator: Optional[torch.Generator] = None):
         """x (B, D, H, W, C_in) -> {"out": float32 logits}; `generator` feeds
-        the ASPP dropout in train mode."""
+        the ASPP dropout in train mode. With a space group x is the whole
+        volume and "out" this rank's rows of H (`self.space.axes[0]`)."""
+        out_spatial = tuple(x.shape[1:4])
+        if self.space is not None:
+            if train:
+                raise NotImplementedError(
+                    "training over a space axis comes with slice 6d of the port")
+            x = self.space.split(x)
         high, low = self.stage0(x, train)
-        return {"out": self.stage1(high, low, tuple(x.shape[1:4]), train, generator)}
+        return {"out": self.stage1(high, low, out_spatial, train, generator)}
 
     def _segment(self, train: bool):
         if train and self.use_checkpointing and torch.is_grad_enabled():
@@ -393,6 +441,9 @@ class MobileNetLRASPP3D(nn.Module):
         # Final trilinear upsample to the input size, in float32 (reference :232);
         # a float64 model stays in float64.
         y = y.to(torch.promote_types(y.dtype, torch.float32))
+        if self.space is not None:  # this rank's rows of the global extent
+            axes = self.space.axes
+            return resize_h(y, axes[2], axes[0], (out_spatial[0], out_spatial[2]))
         return _to_ndhwc(resize_nd(_to_ncdhw(y), tuple(out_spatial), mode="linear",
                                    align_corners=False))
 
@@ -401,6 +452,31 @@ class MobileNetASPP3D(MobileNetLRASPP3D):
     """Variant with the plain conv head (reference MobileNet_ASPP_3D :160-257)."""
 
     head_type = "conv"
+
+
+def attach_space_group(model: MobileNetLRASPP3D, space) -> MobileNetLRASPP3D:
+    """Shard `model`'s eval forward over the space group `space`
+    (`parallel/mesh.py::SpaceGroup`; None detaches): one SpacePlan shared
+    by the model, its 3x3x3 convs (each told the H grid of its input), the
+    ASPP and the head."""
+    plan = None if space is None else SpacePlan(space)
+    model.space = model.aspp.space = model.head.space = plan
+    level = 0
+    for backbone in (model.him, model.lom):
+        for j in range(backbone.n):
+            block = getattr(backbone, f"InvertedResidual3D_{j}")
+            for conv in (block.ConvBN_0.Conv_0, block.ConvBN_1.Conv_0):
+                if isinstance(conv, DepthwiseConv3D) or conv.k == 3:
+                    conv.space, conv.level = plan, level
+                    level += conv.stride == 2
+    convs = [getattr(model.aspp, f"ConvBN_{j + 1}").Conv_0 for j in range(model.aspp.n_rates)]
+    if isinstance(model.head, ConvHead3D):
+        convs.append(model.head.ConvBN_1.Conv_0)
+    for conv in convs:  # at stride 4
+        conv.space, conv.level = plan, level
+    if level != 2:
+        raise ValueError(f"the backbone halves H {level} times, not twice")
+    return model
 
 
 def count_params(model: nn.Module) -> int:

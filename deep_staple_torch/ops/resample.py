@@ -62,6 +62,14 @@ def _axis_nearest(x, axis: int, out_size: int, in_size: int, scale):
     return x.index_select(axis, src)
 
 
+def resize_ndhwc(x, out_spatial):
+    """Linear (align_corners=False) resize of an NDHWC tensor's spatial
+    axes, returned contiguous."""
+    y = resize_nd(x.permute(0, 4, 1, 2, 3), tuple(out_spatial), mode="linear",
+                  align_corners=False)
+    return y.permute(0, 2, 3, 4, 1).contiguous()
+
+
 def resize_nd(x, out_spatial, mode: str = "linear", align_corners: bool = False, scale=None):
     """Resize the trailing ``len(out_spatial)`` axes of ``x``.
 

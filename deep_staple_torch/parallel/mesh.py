@@ -16,12 +16,15 @@ ranks share one, where NCCL refuses, and on the CPU), and it gives every
 rank the same bits, so that replicated state stays bitwise equal. Rows are
 gathered the same way (`gather_rows`).
 
-With a model axis (`parallel/tensor.py`) the world is a grid of D x M
-ranks, rank r = d * M + m with the model index fastest, as the devices of
-JAX's `make_mesh` (`deep_staple_tpu/parallel/mesh.py:29`): the data group
-of a rank is the D ranks of its model index m, its model group the M ranks
-of its data index d (`make_grid`). The step's sums over the batch span
-the data group only; a model group's ranks hold the same rows.
+With a model axis (`parallel/tensor.py`) or a space axis
+(`parallel/spatial.py`) the world is a grid of D x S x M ranks, rank
+r = (d * S + s) * M + m with the model index fastest, as the devices of
+JAX's `make_mesh` (`deep_staple_tpu/parallel/mesh.py:25-30`, reshaped to
+(data, space, model)): the data group of a rank is the D ranks of its
+(s, m), its space group the S ranks of its (d, m), its model group the M
+ranks of its (d, s) (`make_grid`). The step's sums over the batch span the
+data group only; the ranks of a model group hold the same rows, and those
+of a space group the same rows cut along H.
 """
 
 from __future__ import annotations
@@ -130,26 +133,64 @@ class ModelGroup:
     root: int
 
 
-def make_grid(device, model_axis: int = 1):
-    """-> (data group, model group) of this rank in the initialized default
-    process group, the world a grid of D x M ranks, rank d * M + m: the data
-    group the D ranks of this rank's m, the model group the M ranks of its
-    d; either None where it holds one rank (both for a single process).
-    Every rank calls it once, making every group in the same order."""
-    if model_axis <= 1:
-        return make_data_group(device), None
+@dataclass(frozen=True)
+class SpaceGroup:
+    """This rank's place on the space axis (`parallel/spatial.py`): `size`
+    ranks of the process group `group` (None: the default group) over
+    `backend`, this one `rank`; each holds a slab of every volume's H
+    axis."""
+
+    rank: int
+    size: int
+    group: Optional[object] = None
+    backend: str = "gloo"
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum `t` over the ranks, in place."""
+        dist.all_reduce(t, group=self.group)
+        return t
+
+
+def make_grid(device, model_axis: int = 1, space_axis: int = 1):
+    """-> (data group, model group, space group) of this rank in the
+    initialized default process group, the world a grid of D x S x M ranks,
+    rank (d * S + s) * M + m: the data group the D ranks of this rank's
+    (s, m), the space group the S ranks of its (d, m), the model group the
+    M ranks of its (d, s); each None where it holds one rank (all three for
+    a single process). Every rank calls it once, making every group in the
+    same order: the data groups, then the space groups, then the model
+    groups; a group of the whole world is the default group."""
+    if model_axis <= 1 and space_axis <= 1:
+        return make_data_group(device), None, None
     world, rank = dist.get_world_size(), dist.get_rank()
-    if world % model_axis:
-        raise ValueError(f"a model axis of {model_axis} does not divide {world} ranks")
-    D, M = world // model_axis, model_axis
-    d, m = divmod(rank, M)
-    data_groups = [dist.new_group([i * M + j for i in range(D)]) if D > 1 else None
-                   for j in range(M)]
-    model_groups = [dist.new_group([i * M + j for j in range(M)]) if D > 1 else dist.group.WORLD
-                    for i in range(D)]
+    S, M = max(space_axis, 1), max(model_axis, 1)
+    if world % (S * M):
+        raise ValueError(f"a space axis of {S} x a model axis of {M} does not divide {world} ranks")
+    D = world // (S * M)
+    d, rest = divmod(rank, S * M)
+    s, m = divmod(rest, M)
+
+    def groups(n, members):
+        if n == 1:
+            return {}
+        return {key: (dist.new_group(ranks) if len(ranks) < world else dist.group.WORLD)
+                for key, ranks in members}
+
+    at = lambda i, j, k: (i * S + j) * M + k  # noqa: E731
+    data_groups = groups(D, [((j, k), [at(i, j, k) for i in range(D)])
+                             for j in range(S) for k in range(M)])
+    space_groups = groups(S, [((i, k), [at(i, j, k) for j in range(S)])
+                              for i in range(D) for k in range(M)])
+    model_groups = groups(M, [((i, j), [at(i, j, k) for k in range(M)])
+                              for i in range(D) for j in range(S)])
+    backend = dist.get_backend()
     data = None if D == 1 else DataGroup(rank=d, size=D, device=torch.device(device),
-                                         backend=dist.get_backend(), group=data_groups[m])
-    return data, ModelGroup(rank=m, size=M, group=model_groups[d], root=d * M)
+                                         backend=backend, group=data_groups[(s, m)])
+    space = None if S == 1 else SpaceGroup(rank=s, size=S, group=space_groups[(d, m)],
+                                           backend=backend)
+    model = None if M == 1 else ModelGroup(rank=m, size=M, group=model_groups[(d, s)],
+                                           root=at(d, s, 0))
+    return data, model, space
 
 
 def shard_batch(batch: dict, data: Optional[DataGroup]) -> dict:

@@ -19,14 +19,19 @@ Peak host memory is two batches, whatever the number of inputs.
 
 Runs on `cuda` unless `--device cpu` is given.
 
-`--mesh-data N` serves on N ranks, one a device: start N processes under
-`torchrun --nproc-per-node N` (its `RANK`, `WORLD_SIZE`, `MASTER_ADDR` and
-`MASTER_PORT`; JAX's serve CLI has no launch flags either). Each batch's
-rows split over the ranks (the batch size divides by N), each rank loads
-and runs its own, and rank 0 gathers the label maps and writes them: eval
-uses BatchNorm's running statistics, so no collective enters the forward,
-and the maps are those of one process run at the ranks' batch size.
-`--mesh-space` (the volume's H axis over devices) comes with slice 6c.
+`--mesh-data D --mesh-space S` serves on D x S ranks, one a device: start
+D x S processes under `torchrun --nproc-per-node D*S` (its `RANK`,
+`WORLD_SIZE`, `MASTER_ADDR` and `MASTER_PORT`; JAX's serve CLI has no
+launch flags either). JAX serves the same mesh in one process over D x S
+devices; here each device is a process, rank (d * S + s)
+(`parallel/mesh.py::make_grid`). Each batch's rows split over the D data
+ranks (the batch size divides by D), and the S ranks of a space group load
+the same rows and split each volume's H axis at the eval scale
+(`parallel/spatial.py`): each keeps its slab of every activation and reads
+its neighbours' halo rows. The slabs are gathered over the space group,
+then the rows over the data group, and rank 0 writes. Eval uses
+BatchNorm's running statistics, so the maps are those of one process run
+at the data ranks' batch size.
 """
 
 from __future__ import annotations
@@ -86,18 +91,18 @@ def serve(checkpoint_dir, input_paths, output_dir, batch_size: int = 4,
           size=(128, 128, 128), mesh_data: int = 1, mesh_space: int = 1,
           device=None) -> ServeResult:
     size = tuple(size)
-    if mesh_space > 1:
-        raise NotImplementedError(
-            "--mesh-space (the volume's H axis over devices) comes with slice 6c of the port")
-    data = None
-    if mesh_data > 1:
-        data = _join_serving_ranks(mesh_data, batch_size, device)
-        device = data.device
+    world = data = space = None
+    if mesh_data > 1 or mesh_space > 1:
+        world, data, space = _join_serving_ranks(mesh_data, mesh_space, batch_size, size,
+                                                 eval_scale, device)
+        device = world.device
+        print(f"serving on a data={mesh_data} space={mesh_space} device mesh", flush=True)
     device = resolve_device(device)
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
     model, config, _, num_classes = load_serving_state(checkpoint_dir, device)
-    eval_step = make_eval_step(model, config, num_classes, eval_scale_factor=eval_scale)
+    eval_step = make_eval_step(model, config, num_classes, eval_scale_factor=eval_scale,
+                               space=space)
 
     path_chunks = [
         input_paths[s : s + batch_size] for s in range(0, len(input_paths), batch_size)
@@ -133,44 +138,57 @@ def serve(checkpoint_dir, input_paths, output_dir, batch_size: int = 4,
             tb = time.perf_counter()
             image = host_batch.to(device, non_blocking=True)
             batch = {"image": image, "label": torch.zeros(image.shape, dtype=torch.int32, device=device)}
-            pred, _ = eval_step(batch)
+            pred, _ = eval_step(batch)  # the space group's slabs gathered
             n_real = len(path_chunks[i])
-            if data is not None:
+            if data is not None and (space is None or space.rank == 0):
                 pred, chunk_metas = _gather_batch(pred, chunk_metas, path_chunks[i], data)
             pred_np = pred[:n_real].cpu().numpy()  # the batch's one sync
             batch_ms.append((time.perf_counter() - tb) * 1e3)
-            if data is not None and data.rank != 0:
+            if world is not None and world.rank != 0:
                 continue  # rank 0 writes
             for p, m in zip(pred_np, chunk_metas[:n_real]):
                 voxels += int(np.prod(p.shape))
                 out_paths.append(write_output(p, m))
     dt = time.perf_counter() - t0
     n = len(out_paths)
-    ranks = "" if data is None else f", rank {data.rank} of {data.size}"
+    ranks = "" if world is None else f", rank {world.rank} of {world.size}"
     print(f"served {n} volumes in {dt:.2f}s on {device}{ranks} ({len(path_chunks)} executions, "
           f"{n / max(dt, 1e-9):.3f} volumes/s, {voxels / max(dt, 1e-9) / 1e6:.0f} M voxel/s "
           f"incl. write-out)")
     return ServeResult(out_paths, dt, len(path_chunks), batch_ms)
 
 
-def _join_serving_ranks(mesh_data: int, batch_size: int, device):
-    """The data group of `--mesh-data N`: N processes from torchrun's
-    environment (`deep_staple_tpu/serve.py:93-106`'s checks)."""
+def _join_serving_ranks(mesh_data: int, mesh_space: int, batch_size: int, size, eval_scale,
+                        device):
+    """The D x S ranks of `--mesh-data D --mesh-space S` from torchrun's
+    environment -> (the world's group, the data group, the space group),
+    either None where its axis is 1. JAX's checks first, with its messages
+    (`deep_staple_tpu/serve.py:93-106`), then the port's: the processes,
+    and a row of the model's coarsest grid for every space rank."""
     import os
+
+    from .parallel.mesh import make_data_group, make_grid
+    from .parallel.spatial import slab_map
 
     if batch_size % mesh_data:
         raise ValueError(f"--batch-size {batch_size} must be divisible by --mesh-data {mesh_data}")
+    if mesh_space > 1 and size[1] % mesh_space:
+        raise ValueError(f"volume H axis {size[1]} must be divisible by --mesh-space {mesh_space}")
+    n = mesh_data * mesh_space
     world = int(os.environ.get("WORLD_SIZE") or 1)
-    if world != mesh_data:
+    if world != n:
         raise ValueError(
-            f"--mesh-data {mesh_data} serves on {mesh_data} processes, one a device, and this "
-            f"run has {world}: launch it with torchrun --nproc-per-node {mesh_data} "
+            f"--mesh-data {mesh_data} x --mesh-space {mesh_space} serves on {n} processes, one a "
+            f"device, and this run has {world}: launch it with torchrun --nproc-per-node {n} "
             "(RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT in the environment)")
+    if mesh_space > 1:
+        slab_map(int(size[1] * eval_scale), mesh_space)  # raises for too many shards
     if torch.distributed.is_initialized():
-        from .parallel.mesh import make_data_group
-
-        return make_data_group(resolve_device(device))
-    return init_distributed(device=device)
+        group = make_data_group(resolve_device(device))
+    else:
+        group = init_distributed(device=device)
+    data, _, space = make_grid(group.device, 1, mesh_space)
+    return group, data, space
 
 
 def _gather_batch(pred, metas, paths, data):
@@ -241,7 +259,9 @@ def main(argv=None):
                     help="canonical training volume size (L4 default)")
     ap.add_argument("--mesh-data", type=int, default=1,
                     help="serve on N ranks, one a device, under torchrun --nproc-per-node N")
-    ap.add_argument("--mesh-space", type=int, default=1, help="multi-GPU H sharding: slice 6c")
+    ap.add_argument("--mesh-space", type=int, default=1,
+                    help="split each volume's H axis over S ranks (with --mesh-data D: D x S "
+                         "ranks under torchrun --nproc-per-node D*S)")
     ap.add_argument("--device", default=None,
                     help="'cuda' (default; raises without CUDA) or 'cpu'")
     args = ap.parse_args(argv)

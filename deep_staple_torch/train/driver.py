@@ -218,8 +218,9 @@ def check_supported(config: TrainConfig):
     for data and model axes that do not match the processes."""
     if config.mesh_space_axis > 1:
         raise NotImplementedError(
-            "spatial sharding (mesh_space_axis > 1) comes with slices 6c and 6d of the port "
-            "(parallel/spatial.py)")
+            "spatial sharding in training (mesh_space_axis > 1) comes with slice 6d of the "
+            "port; whole-volume inference over a space axis runs (serve --mesh-space, "
+            "parallel/spatial.py)")
     nproc = _world_size()
     if (config.dist_num_processes or 1) > 1 and nproc == 1:
         raise ValueError(
@@ -321,7 +322,7 @@ def train_dl(run_name: str, config: TrainConfig, dataset, atlas_count=None,
     check_supported(config)
     dev = resolve_device(device)
     world = make_data_group(dev)  # every rank: the resume check, rank 0's state, barriers
-    data, tp = make_grid(dev, config.mesh_model_axis)
+    data, tp, _ = make_grid(dev, config.mesh_model_axis)
     is_main = world is None or world.rank == 0
     if world is not None:
         print(f"Device mesh: data={config.mesh_data_axis} space={config.mesh_space_axis} "

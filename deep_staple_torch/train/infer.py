@@ -3,7 +3,9 @@
 for the 2D model, through the model in eval mode, optionally as its MIND-SSC
 features, argmax to a label map, on the model's device. A model sharded over
 a model axis (`parallel/tensor.py`) sums its row convs over its group, so
-every rank of the group calls it on the same volume."""
+every rank of the group calls it on the same volume. For whole-volume
+inference over a space axis of ranks see
+`parallel.spatial.make_whole_volume_inference`."""
 
 from __future__ import annotations
 

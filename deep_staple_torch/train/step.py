@@ -54,6 +54,7 @@ from ..ops.mind import mindssc
 from ..ops.resample import interpolate_sample
 from ..ops.stacking import make_2d_stack_from_3d, make_3d_from_2d_stack
 from ..parallel.mesh import attach_data_group
+from ..parallel.spatial import SlabAxis, even_bounds, gather_slabs
 from ..parallel.tensor import replicated_parameters
 from .losses import dp_loss_fn, weighted_cross_entropy
 from .optim import set_lr, sparse_adam_update
@@ -250,7 +251,8 @@ def make_train_step(model, config: TrainConfig, class_weights, fixed_weighting,
     return train_step
 
 
-def make_eval_step(model, config: TrainConfig, num_classes: int, eval_scale_factor: float = 2.0):
+def make_eval_step(model, config: TrainConfig, num_classes: int, eval_scale_factor: float = 2.0,
+                   space=None):
     """Validation forward on full 3D volumes at the reference's x2.0 eval
     scale (`HybridIdLoader.py:336`). The 2D model sees the volume as a stack
     of slices along `use_2d_normal_to`; its argmax is restacked and scored in
@@ -260,20 +262,40 @@ def make_eval_step(model, config: TrainConfig, num_classes: int, eval_scale_fact
     float32 and `batch["label"]` (B, D, H, W) int on the model's device; pred
     is the int32 argmax at the eval scale and dice (B, num_classes) float32
     against the label interpolated the same way.
+
+    With a space group (`parallel/mesh.py::SpaceGroup`) every rank of the
+    group passes the same batch: the eval-scale interpolation (whose
+    align_corners=True mapping is global) and the MIND-SSC features run on
+    the whole volume, the 3D model on this rank's slab of H
+    (`models/lraspp3d.py::attach_space_group`), the 2D model on this rank's
+    share of the slice stack (its slices are independent: no halo); the
+    argmax is gathered, so that pred and dice are those of one process on
+    every rank.
     """
     stack_dim = config.use_2d_normal_to
+    if space is not None and stack_dim is None:
+        from ..models.lraspp3d import attach_space_group
+
+        attach_space_group(model, space)
 
     def eval_step(batch):
         with torch.inference_mode():
             img, lbl = interpolate_sample(batch["image"], batch["label"], eval_scale_factor, False)
             if stack_dim is not None:
                 stack = make_2d_stack_from_3d(img[:, None], stack_dim)[:, 0]
+                if space is not None:
+                    share = SlabAxis(space, even_bounds(stack.shape[0], space.size))
+                    stack = stack[share.start:share.stop]
                 logits = model(_featurize(stack, config.use_mind, True), train=False)["out"]
                 pred2d = logits.argmax(dim=-1).to(torch.int32)
+                if space is not None:
+                    pred2d = gather_slabs(pred2d, share, dim=0)
                 pred = make_3d_from_2d_stack(pred2d[:, None], stack_dim, img.shape[0])[:, 0]
             else:
                 logits = model(_featurize(img, config.use_mind, False), train=False)["out"]
                 pred = logits.argmax(dim=-1).to(torch.int32)
+                if space is not None:
+                    pred = gather_slabs(pred, model.space.axes[0])
             b_dice = dice_from_int_labels(pred, lbl, num_classes)
         return pred, b_dice
 

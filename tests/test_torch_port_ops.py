@@ -254,7 +254,7 @@ def test_port_imports_no_jax():
         "tools/tcia_download", "tools/fetch_dataset")}
     assert tools_slice <= rel
     parallel_slice = {f"deep_staple_torch/parallel/{m}.py" for m in (
-        "__init__", "mesh", "multihost", "pipeline", "tensor")}
+        "__init__", "mesh", "multihost", "pipeline", "tensor", "spatial")}
     assert parallel_slice <= rel
     # msgpack too: the port decodes flax's checkpoints itself (train/flax_msgpack.py).
     banned = ("jax", "jaxlib", "flax", "optax", "deep_staple_tpu", "msgpack")
@@ -282,7 +282,7 @@ def test_default_device_never_falls_back_to_cpu(tmp_path, monkeypatch):
                         "--output-dir", str(tmp_path / "o")])
     assert not (tmp_path / "out").exists()
     assert resolve_device("cpu") == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="slice 6c"):
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         serve_mod.serve(tmp_path / "ckpt", [], tmp_path / "out", mesh_space=2, device="cpu")
     with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         serve_mod.serve(tmp_path / "ckpt", [], tmp_path / "out", mesh_data=2, device="cpu")

@@ -128,7 +128,7 @@ def test_checkpoint_round_trip_and_backends(tmp_path):
 
 
 @pytest.mark.parametrize("kw, slice_name", [
-    (dict(mesh_space_axis=2), "slices 6c and 6d"),
+    (dict(mesh_space_axis=2), "slice 6d"),
     (dict(checkpoint_backend="orbax"), "state.pt"),
 ])
 def test_unported_options_raise(tmp_path, kw, slice_name):

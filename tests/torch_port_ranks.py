@@ -12,6 +12,7 @@ Run as a script, this module is one rank:
 
     python tests/torch_port_ranks.py step <rank> <world> <store> <out_dir> [case,...]
     python tests/torch_port_ranks.py tp <rank> <world> <store> <out_dir> [case,...]
+    python tests/torch_port_ranks.py space <rank> 8 <store> <out_dir>
     python tests/torch_port_ranks.py main <out_json> <main's argv ...>
     python tests/torch_port_ranks.py main_warm <out_json> <main's argv ...>
 
@@ -21,7 +22,11 @@ rank's results to `<out_dir>/<case>_rank<r>.npz` (the tests run the same
 function in one process for the 1-rank reference); `tp` runs 8 ranks as
 a model axis of 8 (the eval forward, `run_tp_forward`), then ranks 0-2 as a
 model axis of 3, then the grid of data 2 x model 4 (`TP_DATA`, `TP_MODEL`)
-through the step cases, written as `step` writes them; `main` runs
+through the step cases, written as `step` writes them; `space` runs the
+eval forward of each `SPACE_CASES` case on a space group of its first S
+ranks and writes each rank's gathered logits and halo bytes
+(`run_space_case`), then `halo_rows` and `resize_h` on 3 ranks
+(`space_rows`); `main` runs
 `deep_staple_torch.main.main(argv)` and writes the rank's DP vector and
 what it wrote (the snapshot, the metrics file) to `<out_json>`, and its
 model's state_dict and AdamW moments (its shards, with a model axis) to
@@ -69,6 +74,28 @@ STEPS = 2
 TP_DATA, TP_MODEL = 2, 4
 # The eval forward of `tests/test_parallel.py:776-796`: (2, 16, 16, 12, 1).
 FORWARD_SHAPE = (2, 16, 16, 12, 1)
+
+
+# Whole-volume inference over a space axis (`parallel/spatial.py`): case ->
+# (S, head, compute dtype, input (B, D, H, W, 1)). JAX's gate is space 8 on
+# (1, 16, 32, 12) (`tests/test_parallel.py:146-157`); H = 12 over 2 splits
+# the coarsest grid's 3 rows 2 + 1, and H = 22 over 3 gives slabs of 4, 4
+# and 3 rows at stride 2 and extents 11 and 6 that the resizes cannot map
+# by a power of two.
+SPACE_CASES = {
+    "s8": (8, "lraspp", None, (1, 16, 32, 12, 1)),
+    "s4": (4, "lraspp", None, (1, 16, 32, 12, 1)),
+    "s2": (2, "lraspp", None, (1, 16, 32, 12, 1)),
+    "h12-s2": (2, "lraspp", None, (1, 16, 12, 12, 1)),
+    "h22-s3": (3, "lraspp", None, (1, 16, 22, 12, 1)),
+    "conv-s4": (4, "conv", None, (1, 16, 32, 12, 1)),
+    "bf16-s2": (2, "lraspp", "bfloat16", (1, 16, 32, 12, 1)),
+}
+# `halo_rows` and `resize_h` over 3 ranks: a (2, 3, H, 4, 5) tensor of H =
+# 10 rows split 4 + 3 + 3; halos (lo, hi) below, at and above a slab's
+# height; resizes of the 10 rows to extents by powers of two and not.
+HALOS = ((1, 1), (2, 0), (0, 3), (5, 7), (16, 16))
+RESIZES = (5, 40, 6, 23, 10)
 
 
 def clean_env(threads: int = 1) -> dict:
@@ -166,12 +193,19 @@ def forward_model():
     """The eval forward's model: `init_weights` at seed 1, then BatchNorm's
     scale, bias and statistics drawn from a numpy seed, so that the sharded
     statistics differ channel by channel."""
+    from deep_staple_torch.models.lraspp3d import MobileNetLRASPP3D
+
+    return _random_bn(MobileNetLRASPP3D(num_classes=2, use_checkpointing=False)).eval()
+
+
+def _random_bn(model):
+    """`init_weights` at seed 1, then BatchNorm's scale, bias and
+    statistics from a numpy seed."""
     import torch
 
-    from deep_staple_torch.models.lraspp3d import MobileNetLRASPP3D, init_weights
+    from deep_staple_torch.models.lraspp3d import init_weights
     from deep_staple_torch.models.norm import BatchNorm
 
-    model = MobileNetLRASPP3D(num_classes=2, use_checkpointing=False)
     init_weights(model, torch.Generator().manual_seed(1))
     rng = np.random.RandomState(2)
     with torch.no_grad():
@@ -182,7 +216,7 @@ def forward_model():
                 mod.bias.copy_(torch.from_numpy(0.1 * rng.randn(n).astype(np.float32)))
                 mod.mean.copy_(torch.from_numpy(0.1 * rng.randn(n).astype(np.float32)))
                 mod.var.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32)))
-    return model.eval()
+    return model
 
 
 def forward_input():
@@ -201,6 +235,82 @@ def run_tp_forward(group=None) -> np.ndarray:
         shard_model(model, group)
     with torch.no_grad():
         return model(torch.from_numpy(forward_input()))["out"].numpy()
+
+
+def space_model(head: str = "lraspp", dtype=None):
+    """The forward model of the space cases: as `forward_model`, with the
+    conv head if asked, in `dtype`, and class 1's rows of its class convs
+    moved so that the margin (logit 1 - logit 0) of `space_input` at (1, 16, 32,
+    12) has mean 0 and standard deviation 0.25 (the initial one is about
+    0.008): the argmax has both classes (one class would compare nothing),
+    and a bound of 2e-2 on the logits is narrow. The factor multiplies the
+    float32 rounding of the layers below too. (Centred on the median, two voxels' margins would sit at
+    +-0, a tie that any rounding flips.)"""
+    import torch
+
+    from deep_staple_torch.models.lraspp3d import MobileNetASPP3D, MobileNetLRASPP3D
+
+    cls = MobileNetLRASPP3D if head == "lraspp" else MobileNetASPP3D
+    model = _random_bn(cls(num_classes=2, use_checkpointing=False,
+                           dtype=None if dtype is None else getattr(torch, dtype))).eval()
+    last = [model.head.Conv_1, model.head.Conv_2] if head == "lraspp" else [model.head.Conv_0]
+    with torch.no_grad():
+        y = model(torch.from_numpy(space_input((1, 16, 32, 12, 1))))["out"].float()
+        margin = y[..., 1] - y[..., 0]
+        k = 0.25 / margin.std()
+        for conv in last:  # row 1 <- row 0 + k (row 1 - row 0): the margin times k
+            for p in (conv.kernel, conv.bias):
+                p[1] = p[0] + k * (p[1] - p[0])
+        last[0].bias[1] -= k * margin.mean()
+    return model
+
+
+def space_input(shape) -> np.ndarray:
+    return np.random.RandomState(0).randn(*shape).astype(np.float32)
+
+
+def run_space_case(case: str, group=None):
+    """The eval forward of a space case, sharded over `group` (a
+    `parallel.mesh.SpaceGroup`) or whole -> (logits (B, D, H, W, 2) as
+    float32, halo bytes summed over the group); the sharded logits are
+    gathered."""
+    import torch
+
+    from deep_staple_torch.models.lraspp3d import attach_space_group
+    from deep_staple_torch.parallel.spatial import gather_slabs, window_rows
+
+    _, head, dtype, shape = SPACE_CASES[case]
+    model = space_model(head, dtype)
+    attach_space_group(model, group)
+    window_rows.bytes = 0
+    with torch.no_grad():
+        y = model(torch.from_numpy(space_input(shape)))["out"]
+        if group is not None:
+            y = gather_slabs(y, model.space.axes[0])
+    return y.float().numpy(), window_rows.bytes
+
+
+def space_rows(group):
+    """`halo_rows` for each of HALOS and `resize_h` for each of RESIZES on
+    this rank's slab of `space_rows_input` -> {name: rows}."""
+    import torch
+
+    from deep_staple_torch.parallel.spatial import SlabAxis, even_bounds, halo_rows, resize_h
+
+    x = torch.from_numpy(space_rows_input())
+    out = {}
+    ax = SlabAxis(group, even_bounds(x.shape[2], group.size))
+    for lo, hi in HALOS:
+        out[f"halo_{lo}_{hi}"] = halo_rows(x[:, :, ax.start:ax.stop], lo, hi, ax).numpy()
+    dst = {n: SlabAxis(group, even_bounds(n, group.size)) for n in RESIZES}
+    for n_out in RESIZES:
+        out[f"resize_{n_out}"] = resize_h(x[:, :, ax.start:ax.stop], ax, dst[n_out],
+                                          (5, 3)).numpy()
+    return out
+
+
+def space_rows_input() -> np.ndarray:
+    return np.random.RandomState(3).randn(2, 3, 10, 4, 5).astype(np.float32)
 
 
 def warm_create_state(monkeypatch=None):
@@ -315,11 +425,15 @@ def main(argv):
         }))
         return
     mode, rank, world, store, out_dir = argv[:5]
-    if mode not in ("step", "tp"):
+    if mode not in ("step", "tp", "space"):
         raise SystemExit(f"unknown mode {mode!r}")
     from deep_staple_torch.parallel.multihost import init_distributed
 
     data = init_distributed(int(world), int(rank), f"file://{store}", device="cpu", timeout_s=120)
+    if mode == "space":
+        space_forwards(int(rank), int(world), Path(out_dir))
+        torch.distributed.destroy_process_group()
+        return
     if mode == "tp":
         tp_forwards(int(rank), Path(out_dir))
     cases = argv[5].split(",") if len(argv) > 5 else list(STEP_CASES)
@@ -327,7 +441,7 @@ def main(argv):
     if mode == "tp":
         from deep_staple_torch.parallel.mesh import make_grid
 
-        data, tp = make_grid("cpu", TP_MODEL)
+        data, tp, _ = make_grid("cpu", TP_MODEL)
     for case in cases:
         ckpt = Path(out_dir) / f"{case}_ckpt" if tp is not None else None
         np.savez(Path(out_dir) / f"{case}_rank{rank}.npz",
@@ -348,6 +462,26 @@ def tp_forwards(rank: int, out_dir: Path):
     if rank < 3:
         np.save(out_dir / f"fwd3_rank{rank}.npy",
                 run_tp_forward(ModelGroup(rank=rank, size=3, group=three, root=0)))
+    dist.barrier()
+
+
+def space_forwards(rank: int, world: int, out_dir: Path):
+    """Each space case on a space group of ranks 0 .. S-1 (every rank makes
+    every group, in the same order), each rank's gathered logits and the
+    group's halo bytes to `<case>_rank<r>.npz`; then `space_rows` on ranks
+    0-2 to `rows_rank<r>.npz`."""
+    import torch.distributed as dist
+
+    from deep_staple_torch.parallel.mesh import SpaceGroup
+
+    groups = {S: dist.group.WORLD if S == world else dist.new_group(list(range(S)))
+              for S in sorted({c[0] for c in SPACE_CASES.values()} | {3})}
+    for case, (S, *_) in SPACE_CASES.items():
+        if rank < S:
+            logits, nbytes = run_space_case(case, SpaceGroup(rank, S, groups[S], "gloo"))
+            np.savez(out_dir / f"{case}_rank{rank}.npz", logits=logits, halo_bytes=nbytes)
+    if rank < 3:
+        np.savez(out_dir / f"rows_rank{rank}.npz", **space_rows(SpaceGroup(rank, 3, groups[3], "gloo")))
     dist.barrier()
 
 
