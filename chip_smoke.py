@@ -52,15 +52,15 @@ give it, and drives both main paths at full size:
     `tests/test_torch_port_recovery.py` (10 epochs at 16^3, augmentation
     on; the third on three classes) with their thresholds;
   * parallelism: 2 data-parallel ranks (processes sharing the card through
-    gloo) take 3 production steps at the global batch of 8 (4 rows a rank,
+    gloo) take 2 production steps at the global batch of 8 (4 rows a rank,
     state bitwise equal across ranks after each, the first step's metrics
     against 1 rank), `python -m deep_staple_torch.main --dist-num-processes
-    2` trains an epoch on the driver's fixture (only rank 0 writes; its
+    2` trains an epoch on the driver's fixture cut to 4 cases (only rank 0 writes; its
     snapshot's consensus; DP against 1 process), the two-stage pipeline's
     step (1 and 2 microbatches) is held against the fused step and drives
     `train_dl` for an epoch, `serve --mesh-data 2` writes the label maps of
     one process, and the doctor's mesh probe passes; tensor parallelism: 4
-    ranks on a grid of data 2 x model 2 take the same 3 production steps
+    ranks on a grid of data 2 x model 2 take the same 2 production steps
     (each rank half the rows and half the channels of every sharded conv;
     replicated state bitwise equal on every rank and sharded state on the
     data ranks of a model index, the first step's metrics against 1 rank),
@@ -72,6 +72,14 @@ give it, and drives both main paths at full size:
     card) against one process at the data ranks' batch, with each rank's
     volumes/s, peak memory, launches and halo bytes; the depthwise forward
     checked on a space rank's window of 2 and 4 ranks, and timed at 2;
+    training over a space axis: the production step on data 1 x space 2
+    (2 ranks sharing the card, each warping the whole batch and keeping
+    half of every activation's H axis; state bitwise equal across them, the
+    first step's metrics and the state after it against 1 rank; ms a step,
+    peak memory, launches, halo bytes forward and backward a step) and
+    `main --mesh-space-axis 2` over 2 processes (DP, loss and the state
+    against 1 process); the three depthwise kernels checked on a space rank's
+    training windows of 2 and 4 ranks, and timed at 2;
   * registration: `affine_register` on a 256x256x100 fixed volume and a
     256x256x120 moving one made from it by a known affine, at the default
     scales and iterations, held to `tests/test_register.py`'s bound and
@@ -81,7 +89,8 @@ give it, and drives both main paths at full size:
 
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after. It times each kernel beside its bound, its plain
-version and the library call that computes the same function, profiles one
+version and the library call that computes the same function (the library
+call's median of 3 calls), profiles one
 eval step and one production train step, and prints, before its last line,
 the card's name and power limit as nvidia-smi gives them and one JSON line
 with a record for each kernel; the last line is {"ok": true, "device": ...}.
@@ -159,6 +168,24 @@ def space_dw(S):
     """The ten depthwise calls of one serving forward (batch 4) on a rank of
     a space axis of S."""
     return [((B, D, H // S + 2, W, C), s) for (B, D, H, W, C), s in SERVING_DW]
+
+
+# Training over a space axis gives all three depthwise kernels a rank's
+# windows of the training calls, H / S + 2 rows (the training extents, 96
+# and 48, halve evenly at S = 2 and 4; the cotangent's rows beyond the slab
+# are zero, as the layer crops them): checked at S = 2 and 4, timed at 2
+# (`train_s2`).
+SPACE_TRAIN_TIMED = (2,)
+
+
+def space_train_dw(S):
+    """The ten depthwise calls of one training forward (batch 8) on a rank
+    of a space axis of S; the backward runs grad_x and grad_w at the same
+    shapes."""
+    return [((B, D, H // S + 2, W, C), s) for (B, D, H, W, C), s in TRAIN_DW]
+
+
+SPACE_TRAIN_DW = sorted({sh for S in SPACE_SPLITS for sh in space_train_dw(S)} - set(TRAIN_DW))
 # Odd extents and channel counts that are not a multiple of the vector width.
 # Then shapes that cut the forward kernel's tiles raggedly (64-byte channel
 # tiles, 8 x 16 outputs of (y, x) at stride 1 and 8 x 8 at stride 2, 4 rows
@@ -297,6 +324,9 @@ PATH_KERNELS = {
     "parallel_tp_consensus": ("staple_em_iter",),
     **{f"parallel_{tag}_rank{r}": ("depthwise_conv3d_fwd",)
        for tag in ("space2", "space2_bf16", "data2_space2") for r in range(4)},
+    **{f"parallel_space_{path}_rank{r}": ("depthwise_conv3d_fwd", "depthwise_conv3d_grad_x",
+                                           "depthwise_conv3d_grad_w", "sep_warp_pass")
+       for r in range(2) for path in ("step", "train_dl")},
     "parallel_pipeline": ("depthwise_conv3d_fwd", "depthwise_conv3d_grad_x",
                           "depthwise_conv3d_grad_w", "sep_warp_pass"),
 }
@@ -547,10 +577,11 @@ def phase_kernels(rec, seed):
 
 def phase_train_kernels(rec, seed):
     """The three depthwise kernels (forward, grad_x, grad_w) at every shape
-    training gives them (batch 8) and the edge shapes, in float32 and
-    bfloat16, and the separable warp (K1's three passes) at a full-size
-    batch with real fields and at edge shapes,
-    each against its plain version on the same inputs on the card."""
+    training gives them (batch 8), the edge shapes, a model rank's channel
+    slices and a space rank's windows, in float32 and bfloat16, and the
+    separable warp (K1's three passes) at a full-size batch with real fields
+    and at edge shapes, each against its plain version on the same inputs on
+    the card."""
     import torch
 
     from deep_staple_torch.ops.conv3d_dw import (
@@ -579,8 +610,9 @@ def phase_train_kernels(rec, seed):
 
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        for shape, stride in sorted(set(TRAIN_DW)) + EDGE_DW + TP_DW:
-            where = "tp_slice" if (shape, stride) in TP_DW else "train"
+        for shape, stride in sorted(set(TRAIN_DW)) + EDGE_DW + TP_DW + SPACE_TRAIN_DW:
+            where = ("tp_slice" if (shape, stride) in TP_DW else
+                     "space_train" if (shape, stride) in SPACE_TRAIN_DW else "train")
             B, D, H, W, C = shape
             oshape = (B, out_extent(D, stride), out_extent(H, stride), out_extent(W, stride), C)
             x = torch.randn(shape, generator=gen, device=DEV).to(dtype)
@@ -599,7 +631,7 @@ def phase_train_kernels(rec, seed):
                 got = depthwise_conv3d_grad_w(x, g, stride)
                 note("depthwise_conv3d_grad_w", dname, shape, stride,
                      compare_gw(got, depthwise_conv3d_grad_w_plain(x, g, stride)), where)
-                if (shape, stride) in TRAIN_DW or where == "tp_slice":  # its sum has a fixed order
+                if (shape, stride) in TRAIN_DW or where != "train":  # its sum has a fixed order
                     same = torch.equal(got, depthwise_conv3d_grad_w(x, g, stride))
                     note("depthwise_conv3d_grad_w", dname, shape, stride,
                          (same, 0.0 if same else math.inf, "two calls bitwise equal"), where)
@@ -1759,6 +1791,8 @@ SIDE_ORDERS = ("reference", "reference-bf16", "reference-int8", "reference-int6"
 # the Pallas kernel it ports stops, `staple_pallas.py:88`); the run must
 # launch that form.
 SIDE_2D_FIXTURE = dict(num_cases=3, atlas_count=2)
+# Two epochs: the production preset's first is the slab-BatchNorm warm-up
+# (`bn_warmup_epochs`), so the second is the one that drives the async step.
 SIDE_EPOCHS = 2
 
 
@@ -2994,12 +3028,41 @@ def phase_doctor(rec):
 # both share it through gloo) and the two-stage pipeline, at the production
 # configuration's full width: `TrainConfig.tpu_production`, the 64 synthetic
 # samples of the train phase, a global batch of 8 at x1.5.
-PAR_RANKS, PAR_STEPS = 2, 3
+# 2 steps (3 before the training over a space axis joined the phase; the
+# smoke's time limit is shared).
+PAR_RANKS, PAR_STEPS = 2, 2
+# The parallel phase's `main` runs (over 2 and 4 processes and one): the
+# driver's fixture cut from TRAIN_DL_CASES to 4 cases (8 training instances
+# at num_val_images 2: one step of 8 rows; the same volumes and batch).
+PAR_DL_CASES = 4
 # Tensor parallelism: the same step on a grid of data 2 x model 2, 4 ranks
 # sharing the card through gloo (rank d * 2 + m).
 TP_DATA, TP_MODEL = 2, 2
 # First-step metrics of 2 ranks against 1 (`tests/test_parallel.py:64-72`).
 PAR_RTOL, PAR_ATOL = 2e-4, 1e-5
+# Training over a space axis: the same step on data 1 x space 2, 2 ranks
+# sharing the card through gloo, each warping the whole batch and keeping
+# a slab of H; held to one rank at PAR_RTOL / PAR_ATOL in every step's
+# metrics. Both sides start with both optimizers warm at lr SPACE_WARM_LR
+# (as `tests/test_torch_port_spatial_train.py`), so that a step moves each
+# parameter by about lr x its gradient's share of its second moment rather
+# than by lr x its sign: then the state after the first step, against one
+# rank's, checks the backward (the halo rows' adjoints, K3's partials
+# summed over the space group). Every parameter and statistic within
+# SPACE_MOVE_RTOL of one rank's largest parameter move, the DP vector
+# within it of its largest move. Only the first step's: async BatchNorm
+# from a cold start blows the second step's loss up (to about 1e7), whose
+# gradients then move parameters by lr x their sign. Measured on an NVIDIA
+# H100 80GB HBM3: 7.5e-4 (one float32 ulp of a parameter under 0.5; the
+# next, over 0.5, would be 1.5e-3). On the CPU at (8, 32, 32, 16) and (8,
+# 64, 64, 8) a halo exchange without its adjoint gives 6.3e-3 and 2.3e-3.
+SPACE_TRAIN_S = 2
+SPACE_WARM_LR, SPACE_MOVE_RTOL = 1e-4, 2e-3
+# `main` over the space ranks: float32, its state after its one step held
+# to one process's the same way; measured on the card 4.9e-3, twice that
+# is the bound (on the CPU at 32x32x16 a halo exchange without its adjoint
+# gives 1.76).
+SPACE_MAIN_MOVE_RTOL = 1e-2
 # The pipelined step against the fused one, float32, dropout 0, the same
 # draws; production BatchNorm (async) normalizes through the running
 # statistics, so every row's logits are the fused step's. With 1
@@ -3040,16 +3103,21 @@ def _warm(state):
     return state
 
 
-def _par_steps(data, tp=None, seed=0, out_dir=None):
+def _par_steps(data, tp=None, seed=0, out_dir=None, space=None, warm=False, tag=None):
     """PAR_STEPS production steps at the global batch of 8 on this rank's
     rows (all of them without `data`), the model sharded over `tp` (a
-    `parallel.mesh.ModelGroup`) if given. -> the first step's metrics, ms
-    per step, peak memory and launches; each step's state (parameters,
-    buffers, the DP vector; a sharded model's shards) saved to `out_dir`
-    for the cross-rank check."""
+    `parallel.mesh.ModelGroup`) or `space` (a `parallel.mesh.SpaceGroup`)
+    if given; with `warm`, both optimizers warm (`_warm`) at lr
+    SPACE_WARM_LR. -> the first step's metrics, ms per step, peak memory,
+    launches and the halo bytes a step (forward, backward);
+    the state before the steps and after each (parameters, buffers, the DP
+    vector; a sharded model's shards) saved to `out_dir` as
+    `init_<tag>.npz` and `step<k>_<tag>.npz` (`tag`: `rank<r>` by
+    default) for the cross-rank check and the comparison of the moves."""
     import torch
 
     from deep_staple_torch.core.config import TrainConfig
+    from deep_staple_torch.parallel import spatial
     from deep_staple_torch.parallel.tensor import shard_train_state
     from deep_staple_torch.train.driver import make_model
     from deep_staple_torch.train.state import create_state
@@ -3061,8 +3129,18 @@ def _par_steps(data, tp=None, seed=0, out_dir=None):
     cfg = TrainConfig.tpu_production()
     ds, cw, fixed = synthetic_dataset(DATASET_LEN, TRAIN_BASE[1:], seed, dev)
     model, _ = make_model(cfg, 2)
-    state = shard_train_state(create_state(model, DATASET_LEN, seed=seed, device=dev), tp)
-    step = make_train_step(model, cfg, cw, fixed, data=data)
+    state = create_state(model, DATASET_LEN, seed=seed, device=dev)
+    state = shard_train_state(_warm(state) if warm else state, tp)
+    lr = SPACE_WARM_LR if warm else cfg.lr
+    step = make_train_step(model, cfg, cw, fixed, data=data, space=space)
+    if out_dir is not None and tag is None:
+        tag = f"rank{_t.distributed.get_rank()}"
+
+    def save(name):
+        if out_dir is not None:
+            np.savez(Path(out_dir) / f"{name}_{tag}.npz", **_state_arrays(state))
+
+    save("init")
     gen = torch.Generator(device=dev).manual_seed(seed)
     order = np.random.RandomState(seed).permutation(DATASET_LEN)
     B = TRAIN_BASE[0]
@@ -3070,22 +3148,23 @@ def _par_steps(data, tp=None, seed=0, out_dir=None):
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     reset_counts()
+    spatial.reset_counts()
     out = {"ms": []}
     for k in range(PAR_STEPS):
         idx = order[k * B:(k + 1) * B]
         idx = idx if data is None else idx[data.rows(B)]
         t = _sync_dev(dev)
-        state, metrics = step(state, _batch(ds, idx), cfg.lr, generator=gen)
+        state, metrics = step(state, _batch(ds, idx), lr, generator=gen)
         out["ms"].append((_sync_dev(dev) - t) * 1e3)
         if k == 0:
             out["metrics"] = {n: metrics[n].float().cpu().numpy().tolist()
                               for n in ("ce_loss", "dp_loss", "dice")}
-        if out_dir is not None:
-            rank = _t.distributed.get_rank()
-            np.savez(Path(out_dir) / f"step{k}_rank{rank}.npz", dp=state.dp_params.cpu().numpy(),
-                     **{n: v.float().cpu().numpy() for n, v in model.state_dict().items()})
+        save(f"step{k}")
     out["launches"] = read_counts()
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else 0.0
+    w = spatial.window_rows
+    out["halo"] = {"forward_bytes": w.bytes / PAR_STEPS, "backward_bytes": w.grad_bytes / PAR_STEPS,
+                   "exchanges": w.calls / PAR_STEPS, "backward_exchanges": w.grad_calls / PAR_STEPS}
     return out
 
 
@@ -3097,14 +3176,14 @@ def _sync_dev(dev):
 
 def parallel_rank(kind, out_json, *argv):
     """One rank of the parallel phase, in its own process (`kind`: 'step',
-    'tp_step', 'main', 'serve' or 'space_serve'); writes what the phase
-    checks to `out_json`."""
+    'tp_step', 'space_step', 'main', 'serve' or 'space_serve'); writes what
+    the phase checks to `out_json`."""
     import torch
 
     from deep_staple_torch.core.device import resolve_device
 
     torch.set_num_threads(2)
-    if kind in ("step", "tp_step"):
+    if kind in ("step", "tp_step", "space_step"):
         from deep_staple_torch.parallel.mesh import make_grid
         from deep_staple_torch.parallel.multihost import init_distributed
 
@@ -3115,6 +3194,9 @@ def parallel_rank(kind, out_json, *argv):
         if tp:
             res = _par_steps(*make_grid(world.device, TP_MODEL)[:2], seed=int(seed),
                              out_dir=out_dir)
+        elif kind == "space_step":
+            res = _par_steps(None, seed=int(seed), out_dir=out_dir, warm=True,
+                             space=make_grid(world.device, 1, SPACE_TRAIN_S)[2])
         else:
             res = _par_steps(world, seed=int(seed), out_dir=out_dir)
         torch.distributed.destroy_process_group()
@@ -3122,11 +3204,19 @@ def parallel_rank(kind, out_json, *argv):
         from deep_staple_torch.main import main
         from deep_staple_torch.train import driver
 
-        create_state = driver.create_state
-        driver.create_state = lambda *a, **k: _warm(create_state(*a, **k))
+        from deep_staple_torch.parallel import spatial
+
+        init = {}
+        driver.create_state = _warm_keeping(driver.create_state, init)
         reset_counts()
+        spatial.reset_counts()
         r = main(list(argv))[0]
+        np.savez(Path(out_json).with_suffix(".npz"), **{f"init:{n}": v for n, v in init.items()},
+                 **{f"final:{n}": v for n, v in _state_arrays(r["state"]).items()})
+        w = spatial.window_rows
         res = {"launches": read_counts(), "dp": r["state"].dp_params.cpu().numpy().tolist(),
+               "halo_bytes": {"forward": w.bytes, "replay": w.replay_bytes,
+                              "backward": w.grad_bytes},
                "snapshot": None if r["snapshot_path"] is None else str(r["snapshot_path"]),
                "writes_metrics": r["writer"]._jsonl is not None,
                "losses": [h["losses/loss_fold0"] for h in r["writer"].history
@@ -3256,14 +3346,17 @@ def _close(got, want, rtol, atol=0.0) -> float:
 
 
 def phase_parallel(rec, seed, root):
-    """Data parallelism over 2 ranks and the two-stage pipeline, at full
-    width, through the port's entry points; the doctor's mesh probe."""
+    """Data parallelism over 2 ranks, tensor parallelism on data 2 x model
+    2, training over a space axis of 2, the two-stage pipeline and serving
+    over data and space axes, at full width, through the port's entry
+    points; the doctor's mesh probe."""
     import gzip
     import tempfile
 
     import torch
 
     from deep_staple_torch.consensus.evaluate import evaluate_consensus
+    from deep_staple_torch.data.synthetic import generate_synthetic_crossmoda
     from deep_staple_torch.doctor import check_mesh
     from deep_staple_torch.main import main as train_main
     from deep_staple_torch.serve import serve
@@ -3279,7 +3372,7 @@ def phase_parallel(rec, seed, root):
         tmp = Path(tmp_s)
 
         # --- the data-parallel step: 1 rank here, then 2 ranks ---
-        one = _par_steps(None, seed=seed)
+        one = _par_steps(None, seed=seed, out_dir=tmp, warm=True, tag="one")
         torch.cuda.empty_cache() if dev.type == "cuda" else None
         ranks, wall = _launch_ranks("step", tmp, [[str(r), str(tmp / "store_step"), str(seed),
                                                    str(tmp)] for r in range(PAR_RANKS)])
@@ -3307,9 +3400,15 @@ def phase_parallel(rec, seed, root):
 
         # --- train_dl through main over 2 processes, and over 1 ---
         # As the train_dl phase's comparison (TRAIN_DL_*): float32, lr 1e-4,
-        # both optimizers warm.
+        # both optimizers warm; on the driver's fixture cut to PAR_DL_CASES
+        # cases (one step of 8 rows, 8 snapshot rows).
+        par_root = tmp / "par_fixture"
+        generate_synthetic_crossmoda(par_root, num_cases=PAR_DL_CASES,
+                                     atlas_count=TRAIN_DL_ATLASES, bad_atlases_per_case=1,
+                                     size=TRAIN_DL_SIZE, seed=seed)
+
         def dl_argv(tag, *extra):
-            return ["--preset", "production", *_fixture_args(root, tmp / tag), "--epochs", "1",
+            return ["--preset", "production", *_fixture_args(par_root, tmp / tag), "--epochs", "1",
                     "--batch-size", "8", "--num-val-images", "2", "--lr", "1e-4",
                     "--compute-dtype", "float32", "--run-name", "par", *extra]
 
@@ -3331,8 +3430,8 @@ def phase_parallel(rec, seed, root):
         reset_counts()
         evaluate_consensus(ranks[0]["snapshot"], out_path=tmp / "consensus.pkl", device=DEV)
         _record_path(rec, "parallel_consensus", read_counts())
-        create_state = driver.create_state
-        driver.create_state = lambda *a, **k: _warm(create_state(*a, **k))
+        create_state, init1 = driver.create_state, {}
+        driver.create_state = _warm_keeping(create_state, init1)
         try:
             t = time.perf_counter()
             single = train_main(dl_argv("one"))[0]
@@ -3340,6 +3439,7 @@ def phase_parallel(rec, seed, root):
         finally:
             driver.create_state = create_state
         dp1 = single["state"].dp_params.cpu().numpy()
+        state1 = (init1, _state_arrays(single["state"]))
         loss1 = [h["losses/loss_fold0"] for h in single["writer"].history
                  if "losses/loss_fold0" in h]
         dp_gap = float(np.abs(dps[0] - dp1).max() / np.abs(dp1).max())
@@ -3355,6 +3455,10 @@ def phase_parallel(rec, seed, root):
         del single
         torch.cuda.empty_cache() if dev.type == "cuda" else None
         out["tp_train_dl"] = _par_tp_main(rec, tmp, dl_argv, dp1, loss1)
+
+        # --- training over a space axis: the step, then main ---
+        out["space_step"] = _par_space_step(rec, seed, tmp, one)
+        out["space_train_dl"] = _par_space_main(rec, tmp, dl_argv, dp1, loss1, state1)
 
         # --- the pipeline: the pipelined step against the fused one ---
         out["pipeline"] = _par_pipeline(rec, seed, root, tmp)
@@ -3604,6 +3708,151 @@ def _par_tp_main(rec, tmp, dl_argv, dp1, loss1):
     return {"launch_wall_s": wall, "dp_gap": dp_gap, "loss_gap": loss_gap, "ranks": ranks}
 
 
+def _state_gap(what, init, want, got, rtol):
+    """`got`'s state after a step against `want`'s, both from `init` (dicts
+    of the model's state_dict and "dp", as `_state_arrays` gives them), as
+    `tests/test_torch_port_spatial_train.py` holds them: one side's largest
+    parameter move and the other's largest gap from it (BatchNorm left out
+    of both), every entry within 1e-4 of its value plus `rtol` of that
+    move, the DP vector within `rtol` of its largest move. Logs; raises
+    where a bound is passed. -> the numbers."""
+    keys = [n for n in want if n != "dp"]
+    par = [n for n in keys if ".BatchNorm_0." not in n]
+    move = max(float(np.abs(want[n] - init[n]).max()) for n in par)
+    m = {"move": move, "gap": max(float(np.abs(got[n] - want[n]).max()) for n in par),
+         "excess": max(float((np.abs(got[n] - want[n]) - 1e-4 * np.abs(want[n])).max())
+                       for n in keys) - rtol * move,
+         "dp_move": float(np.abs(want["dp"] - init["dp"]).max()),
+         "dp_gap": float(np.abs(got["dp"] - want["dp"]).max()), "bound": rtol}
+    m["rel"], m["dp_rel"] = m["gap"] / max(move, 1e-30), m["dp_gap"] / max(m["dp_move"], 1e-30)
+    log(f"[parallel] {what}: state after the step against 1 rank: parameters' largest gap "
+        f"{m['gap']:.3e} of a largest move {move:.3e} ({m['rel']:.3e}; bound {rtol}), DP's "
+        f"{m['dp_gap']:.3e} of {m['dp_move']:.3e} ({m['dp_rel']:.3e}); every entry's excess "
+        f"{m['excess']:.3e}")
+    if move <= 0 or m["dp_move"] <= 0 or m["excess"] > 0 or max(m["rel"], m["dp_rel"]) > rtol:
+        raise AssertionError(f"{what}: the state after the step is not one rank's: {m}")
+    return m
+
+
+def _state_arrays(state) -> dict:
+    """A train state's model state_dict (float32) and DP vector, as numpy
+    copies (a CPU tensor's `.numpy()` would follow the training)."""
+    return {"dp": np.array(state.dp_params.cpu()),
+            **{n: np.array(v.float().cpu()) for n, v in state.model.state_dict().items()}}
+
+
+def _warm_keeping(create_state, keep):
+    """`driver.create_state` with both optimizers warm (`_warm`); the state
+    it made put in `keep` (`_state_arrays`)."""
+    def make(*a, **k):
+        state = _warm(create_state(*a, **k))
+        keep.update(_state_arrays(state))
+        return state
+    return make
+
+
+def _par_space_step(rec, seed, tmp, one):
+    """The production step on data 1 x space 2 (2 ranks sharing the card,
+    each warping the whole batch of 8 and keeping its slab of H) against
+    one rank (`one`), both warm at SPACE_WARM_LR: the first step's metrics
+    at PAR_RTOL / PAR_ATOL and the state after it within SPACE_MOVE_RTOL of
+    one rank's moves (`_state_gap`), the state the same bits on both ranks
+    after each step; per rank ms a step, peak memory, launches and halo
+    bytes a step."""
+    sdir = tmp / "space_step"
+    sdir.mkdir()
+    ranks, wall = _launch_ranks("space_step", sdir, [[str(r), str(tmp / "store_space"),
+                                                      str(seed), str(sdir)]
+                                                     for r in range(SPACE_TRAIN_S)])
+    for k in range(PAR_STEPS):
+        a, b = (np.load(sdir / f"step{k}_rank{r}.npz") for r in range(SPACE_TRAIN_S))
+        bad = [n for n in a.files if not np.array_equal(a[n], b[n])]
+        if bad:
+            raise AssertionError(f"space step {k}: ranks differ in {bad[:5]}")
+    gaps = {n: _close(ranks[0]["metrics"][n], one["metrics"][n], PAR_RTOL, PAR_ATOL)
+            for n in ("ce_loss", "dp_loss", "dice")}
+    rel = {n: float(np.max(np.abs(np.asarray(ranks[0]["metrics"][n], np.float64)
+                                  - np.asarray(one["metrics"][n], np.float64))
+                           / np.maximum(np.abs(np.asarray(one["metrics"][n], np.float64)), 1e-30)))
+           for n in ("ce_loss", "dp_loss", "dice")}
+    init = dict(np.load(tmp / "init_one.npz"))
+    bad = [n for n, v in np.load(sdir / "init_rank0.npz").items() if not np.array_equal(v, init[n])]
+    if bad:
+        raise AssertionError(f"space step: the ranks start from another state than one rank in "
+                             f"{bad[:5]}")
+    for r, res in enumerate(ranks):
+        _record_path(rec, f"parallel_space_step_rank{r}", res["launches"])
+        h = res["halo"]
+        log(f"[parallel] space step rank {r} (data 0, space {r}): ms per step "
+            f"{[round(m, 1) for m in res['ms']]} (1 rank: {[round(m, 1) for m in one['ms']]}), "
+            f"peak {res['peak_mem_gb']:.2f} GB (1 rank {one['peak_mem_gb']:.2f}, "
+            f"{res['peak_mem_gb'] / max(one['peak_mem_gb'], 1e-9):.2f}x), launches K1 "
+            f"{res['launches']['sep_warp_pass']} K2 {res['launches']['depthwise_conv3d_fwd']} "
+            f"K2 bwd {res['launches']['depthwise_conv3d_grad_x']} K3 "
+            f"{res['launches']['depthwise_conv3d_grad_w']}; halo a step: forward "
+            f"{h['forward_bytes'] / 1e6:.1f} MB in {h['exchanges']:.0f} exchanges, backward "
+            f"{h['backward_bytes'] / 1e6:.1f} MB in {h['backward_exchanges']:.0f}")
+    log(f"[parallel] space step data 1 x space {SPACE_TRAIN_S}: state bitwise equal across ranks "
+        f"after each of {PAR_STEPS} steps; first step ce {ranks[0]['metrics']['ce_loss']:.6f} / "
+        f"{one['metrics']['ce_loss']:.6f}, dp {ranks[0]['metrics']['dp_loss']:.6f} / "
+        f"{one['metrics']['dp_loss']:.6f} (2 ranks / 1), relative gaps {rel}, excess over rtol "
+        f"{PAR_RTOL} atol {PAR_ATOL}: {gaps}; {wall:.1f} s launch to exit")
+    if max(gaps.values()) > 0:
+        raise AssertionError(f"space step: 2 ranks vs 1 beyond the bound: {gaps}")
+    m = _state_gap(f"space step (bfloat16, warm, lr {SPACE_WARM_LR})", init,
+                   dict(np.load(tmp / "step0_one.npz")), dict(np.load(sdir / "step0_rank0.npz")),
+                   SPACE_MOVE_RTOL)
+    return {"ranks": ranks, "launch_wall_s": wall, "metric_excess": gaps, "metric_rel_gap": rel,
+            "state_vs_one": m}
+
+
+def _par_space_main(rec, tmp, dl_argv, dp1, loss1, state1):
+    """`main --preset production --mesh-space-axis 2` over 2 processes on
+    the driver's fixture, as the 2-process run: DP bitwise equal across the
+    ranks, only rank 0 wrote, DP and loss against one process (`dp1`,
+    `loss1`), and rank 0's state after its one step (float32, warm, lr
+    1e-4) within SPACE_MAIN_MOVE_RTOL of one process's moves (`state1`:
+    its state before and after); halo bytes of each rank's run. With
+    remat, as the grid's `main`: its recomputation replays the exchanges
+    (counted apart), and one process without it is the reference still."""
+    S = SPACE_TRAIN_S
+    ranks, wall = _launch_ranks("main", tmp, [dl_argv(
+        "space", "--mesh-space-axis", str(S), "--dist-num-processes", str(S),
+        "--dist-process-id", str(r), "--dist-coordinator", f"file://{tmp / 'store_space_main'}",
+        "--use-checkpointing", "true") for r in range(S)])
+    dps = [np.asarray(r["dp"], np.float32) for r in ranks]
+    if any(not np.array_equal(d, dps[0]) for d in dps[1:]):
+        raise AssertionError("space train_dl: the ranks' DP vectors differ")
+    if not (ranks[0]["writes_metrics"] and ranks[0]["snapshot"]
+            and not any(r["writes_metrics"] or r["snapshot"] for r in ranks[1:])):
+        raise AssertionError(f"space train_dl: writes {ranks}")
+    ckpts = sorted(p.name for p in (tmp / "space" / "models").iterdir())
+    if ckpts != ["par_fold0_epx0"]:
+        raise AssertionError(f"space train_dl: checkpoints {ckpts}")
+    for r, res in enumerate(ranks):
+        _record_path(rec, f"parallel_space_train_dl_rank{r}", res["launches"])
+    dp_gap = float(np.abs(dps[0] - dp1).max() / np.abs(dp1).max())
+    loss_gap = abs(ranks[0]["losses"][0] - loss1[0]) / abs(loss1[0])
+    log(f"[parallel] space train_dl over {S} processes (data 1 x space {S}): {wall:.1f} s from "
+        f"launch to exit; DP bitwise equal across ranks; only rank 0 wrote; DP {dp_gap:.2e} of its "
+        f"largest from 1 process (bound {TRAIN_DL_DP_RTOL}), epoch loss {loss_gap:.2e} (bound "
+        f"{TRAIN_DL_LOSS_RTOL}); launches {[r['launches'] for r in ranks]}; halo bytes (forward, "
+        f"remat replay, backward) {[r['halo_bytes'] for r in ranks]}")
+    if dp_gap > TRAIN_DL_DP_RTOL or loss_gap > TRAIN_DL_LOSS_RTOL:
+        raise AssertionError(f"space train_dl vs 1 process: DP {dp_gap}, loss {loss_gap}")
+    saved = np.load(tmp / "main0.npz")
+    init, final = ({n.split(":", 1)[1]: saved[n] for n in saved.files if n.startswith(f"{k}:")}
+                   for k in ("init", "final"))
+    bad = [n for n, v in init.items() if not np.array_equal(v, state1[0][n])]
+    if bad:
+        raise AssertionError(f"space train_dl: rank 0 starts from another state than 1 process "
+                             f"in {bad[:5]}")
+    m = _state_gap("space train_dl (float32, warm, lr 1e-4)", init, state1[1], final,
+                   SPACE_MAIN_MOVE_RTOL)
+    return {"launch_wall_s": wall, "dp_gap": dp_gap, "loss_gap": loss_gap, "ranks": ranks,
+            "state_vs_one": m}
+
+
 def _free_port() -> int:
     import socket
 
@@ -3689,8 +3938,10 @@ def _par_pipeline(rec, seed, root, tmp):
 # The TCIA tree of the dataset-tools phase: cases of a ceT1 series at the
 # registration phase's fixed size and an hrT2 series at its moving size over
 # the same field of view, rotated and shifted (`_registration_pair`), with an
-# RTSTRUCT on the ceT1 series. 1 mm pixels; slices along -z.
-DS_CASES = 2
+# RTSTRUCT on the ceT1 series. 1 mm pixels; slices along -z. One case (two
+# before the training over a space axis joined the parallel phase; the
+# smoke's time limit is shared).
+DS_CASES = 1
 
 
 def _dcm_el(group, elem, vr, value: bytes) -> bytes:
@@ -3970,10 +4221,17 @@ def phase_dataset_tools(rec, seed):
 
 # ----------------------------------------------------------------- times
 
+# The library call's repeats in `_time_row`, after one warm-up: its bf16
+# weight gradient takes seconds a call, and the smoke's time limit is shared.
+LIBRARY_REPS = 3
+
+
 def _time_row(kernel_fn, plain_fn, library_fn, nbytes, ops, reps=10, plain_reps=3):
+    """The kernel's median of `reps` calls, the plain version's and the
+    library call's (LIBRARY_REPS)."""
     k_ms = timed_ms(kernel_fn, reps=reps)
     p_ms = timed_ms(plain_fn, reps=plain_reps, warmup=1)
-    l_ms = timed_ms(library_fn, reps=reps) if library_fn is not None else None
+    l_ms = timed_ms(library_fn, reps=LIBRARY_REPS, warmup=1) if library_fn is not None else None
     b_ms, by = bound(nbytes, ops)
     return {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms, "bound_by": by,
             "bytes": nbytes, "ops": ops}
@@ -3986,8 +4244,9 @@ def phase_times(rec, seed):
     aten.convolution_backward(groups=C) with the input or the weight
     gradient selected for the backward. The separable warp has no such call.
     The training rows again at a rank's channel slice of a model axis of 2
-    and 4 (`train_m2`, `train_m4`), the serving rows on a rank's window of a
-    space axis of 2 (`serve_s2`); the plain version timed once there."""
+    and 4 (`train_m2`, `train_m4`), the serving and training rows on a rank's
+    windows of a space axis of 2 (`serve_s2`, `train_s2`); the plain version
+    timed once there."""
     import torch
     import torch.nn.functional as F
 
@@ -4000,7 +4259,8 @@ def phase_times(rec, seed):
     times = {name: {} for name in KERNELS}
     paths = [("serve", SERVING_DW), ("train", TRAIN_DW)] + [(f"train_m{M}", tp_dw(M))
                                                             for M in TP_TIMED] \
-        + [(f"serve_s{S}", space_dw(S)) for S in SPACE_TIMED]
+        + [(f"serve_s{S}", space_dw(S)) for S in SPACE_TIMED] \
+        + [(f"train_s{S}", space_train_dw(S)) for S in SPACE_TRAIN_TIMED]
     for path, shapes in paths:
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
@@ -4183,6 +4443,13 @@ def summary_line(rec):
         if space:
             entry["space_slabs"] = space
             entry["space_slab_max_abs_err"] = checks.get(f"{name}.space_slab")
+        # A rank's windows of a space axis of S in training: one training
+        # step's ten calls at H / S + 2 rows.
+        space_train = {f"s{S}": {d: _sums(r) for d, r in rows[f"train_s{S}"].items()}
+                       for S in SPACE_TRAIN_TIMED if f"train_s{S}" in rows}
+        if space_train:
+            entry["space_train_windows"] = space_train
+            entry["space_train_max_abs_err"] = checks.get(f"{name}.space_train")
         entries.append(entry)
     return {"kernels": entries}
 
@@ -4208,15 +4475,27 @@ def main(argv=None):
 
     resolve_device()  # float32 precision: TF32 off in cuDNN and matmuls
     torch.set_num_threads(os.cpu_count() or 1)
-    rec = {"seed": args.seed, "phases": phases}
+    rec = {"seed": args.seed, "phases": phases, "phase_s": {}}
     t0 = time.perf_counter()
+    last = [t0]
+
+    def mark(name):
+        """Log and keep the seconds since the last mark, under `name`."""
+        now = time.perf_counter()
+        rec["phase_s"][name] = now - last[0]
+        log(f"[phase] {name} {now - last[0]:.1f} s")
+        last[0] = now
+
     phase_device(rec)
     if "build" in phases:
         phase_build(rec)
+        mark("build")
     if "kernels" in phases:
         phase_kernels(rec, args.seed)
+        mark("kernels")
     if "train_kernels" in phases:
         phase_train_kernels(rec, args.seed)
+        mark("train_kernels")
     cons = None
     if {"consensus_kernels", "consensus"} & set(phases):
         t = time.perf_counter()
@@ -4225,27 +4504,35 @@ def main(argv=None):
             f"made in {time.perf_counter() - t:.1f} s")
     if "consensus_kernels" in phases:
         phase_consensus_kernels(rec, args.seed, cons[1])
+        mark("consensus_kernels")
     if {"serve", "e2e", "profile"} & set(phases):
         inputs, variables, small, ckpts = _setup_serving(rec, args.seed)
         if "serve" in phases:
             phase_serve(rec, inputs, ckpts)
+            mark("serve")
         if "e2e" in phases:
             phase_e2e(rec, variables, small)
+            mark("e2e")
         if "profile" in phases:
             phase_profile(rec, inputs, ckpts)
+            mark("profile")
         shutil.rmtree(WORK, ignore_errors=True)
     if {"train", "train_profile"} & set(phases):
         data, cw, fixed = synthetic_dataset(DATASET_LEN, TRAIN_BASE[1:], args.seed, DEV)
         if "train" in phases:
             phase_train(rec, data, cw, fixed, args.seed)
+            mark("train")
         if "train_profile" in phases:
             phase_train_profile(rec, data, cw, fixed, args.seed)
+            mark("train_profile")
         del data
         torch.cuda.empty_cache()
     if "train_e2e" in phases:
         phase_train_e2e(rec, args.seed)
+        mark("train_e2e")
     if "consensus" in phases:
         phase_consensus(rec, args.seed, *cons)
+        mark("consensus")
     del cons
     if {"train_dl", "pipeline", "side_paths", "parallel"} & set(phases):
         import tempfile
@@ -4254,24 +4541,34 @@ def main(argv=None):
             write_dl_fixture(Path(tmp), args.seed)
             if "train_dl" in phases:
                 phase_train_dl(rec, args.seed, Path(tmp))
+                mark("train_dl")
             if "pipeline" in phases:
                 phase_pipeline(rec, Path(tmp), args.seed)
+                mark("pipeline")
             if "side_paths" in phases:
                 phase_side_paths(rec, args.seed, Path(tmp))
+                mark("side_paths")
             if "parallel" in phases:
                 phase_parallel(rec, args.seed, Path(tmp))
+                mark("parallel")
     if "oracle" in phases:
         phase_oracle(rec)
+        mark("oracle")
     if "registration" in phases:
         phase_registration(rec, args.seed)
+        mark("registration")
     if "jax_checkpoint" in phases:
         phase_jax_checkpoint(rec, args.seed)
+        mark("jax_checkpoint")
     if "doctor" in phases:
         phase_doctor(rec)
+        mark("doctor")
     if "dataset_tools" in phases:
         phase_dataset_tools(rec, args.seed)
+        mark("dataset_tools")
     if "times" in phases:
         phase_times(rec, args.seed)
+        mark("times")
     rec["seconds"] = time.perf_counter() - t0
     log(f"[done] {rec['seconds']:.1f} s")
     if args.json_out:

@@ -24,6 +24,14 @@ Tensor parallelism over a model axis of M (`--mesh-model-axis M`,
 --mesh-model-axis M --dist-num-processes D*M` (or `torchrun
 --nproc-per-node D*M`); each rank holds its channel slice of the sharded
 convs, and JAX's one-process model axis is a process a rank here.
+
+Spatial sharding over a space axis of S (`--mesh-space-axis S`,
+`parallel/spatial.py`): D x S x M processes, `--mesh-data-axis D
+--mesh-space-axis S [--mesh-model-axis M] --dist-num-processes D*S*M` (or
+`torchrun --nproc-per-node D*S*M -m deep_staple_torch.main --preset
+production --mesh-data-axis D --mesh-space-axis S --mesh-model-axis M
+...`); each rank keeps a slab of every volume's H axis, and JAX's
+one-process space axis is a process a rank here too.
 """
 
 from __future__ import annotations

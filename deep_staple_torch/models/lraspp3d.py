@@ -45,9 +45,13 @@ branches, the conv head) run `F.conv3d` without H padding on the window,
 a depthwise conv runs K2 on the window and crops the rows computed against
 K2's own zero pad; the two global means are sums over the group; the
 head's resize and the final upsample take the global extents
-(`spatial.resize_h`). Eval only: training over a space axis is slice 6d.
-The global means are summed in float64 with or without a space group, so
-that both round the same mean.
+(`spatial.resize_h`). The global means are summed in float64 with or
+without a space group, so that both round the same mean. In train mode the
+exchanges carry the gradients back to the rows' owners, BatchNorm takes its
+moments over the group's slabs (`models/norm.py`; not the pooled branch,
+whose input every rank of the group holds whole), and the ASPP's dropout
+draws the mask of the global batch and stride-4 grid and keeps this rank's
+rows of it, so that the mask is the same whatever the number of ranks.
 """
 
 from __future__ import annotations
@@ -316,14 +320,19 @@ class ASPP3D(nn.Module):
             generator.set_state(state)
         # Drawn on the generator's device: a CPU generator gives the same mask
         # to a model on any device. With a data group, the global batch's
-        # mask, of which this rank keeps its rows: the same mask whatever the
-        # number of ranks.
-        shape = tuple(y.shape)
+        # mask, of which this rank keeps its rows, and with a space group the
+        # global stride-4 grid's, of which it keeps its rows of H: the same
+        # mask whatever the number of ranks.
+        shape = list(y.shape)
         if self.data is not None:
-            shape = (shape[0] * self.data.size,) + shape[1:]
+            shape[0] *= self.data.size
+        if self.space is not None:
+            shape[2] = self.space.axes[2].extent
         keep = torch.rand(shape, generator=generator, device=generator.device) >= self.dropout_rate
         if self.data is not None:
             keep = keep[self.data.rows(shape[0])]
+        if self.space is not None:
+            keep = keep[:, :, self.space.axes[2].start:self.space.axes[2].stop]
         keep = keep.to(y.device, non_blocking=True)
         return torch.where(keep, y / (1.0 - self.dropout_rate), 0.0)
 
@@ -411,9 +420,6 @@ class MobileNetLRASPP3D(nn.Module):
         volume and "out" this rank's rows of H (`self.space.axes[0]`)."""
         out_spatial = tuple(x.shape[1:4])
         if self.space is not None:
-            if train:
-                raise NotImplementedError(
-                    "training over a space axis comes with slice 6d of the port")
             x = self.space.split(x)
         high, low = self.stage0(x, train)
         return {"out": self.stage1(high, low, out_spatial, train, generator)}
@@ -455,12 +461,18 @@ class MobileNetASPP3D(MobileNetLRASPP3D):
 
 
 def attach_space_group(model: MobileNetLRASPP3D, space) -> MobileNetLRASPP3D:
-    """Shard `model`'s eval forward over the space group `space`
-    (`parallel/mesh.py::SpaceGroup`; None detaches): one SpacePlan shared
-    by the model, its 3x3x3 convs (each told the H grid of its input), the
-    ASPP and the head."""
-    plan = None if space is None else SpacePlan(space)
+    """Shard `model`'s forward over the space group `space`
+    (`parallel/mesh.py::SpaceGroup`, or the SpacePlan of another model to
+    share it; None detaches): one SpacePlan shared by the model, its 3x3x3
+    convs (each told the H grid of its input), the ASPP and the head; every
+    BatchNorm whose input is a slab of H takes the group (all but the ASPP's
+    pooled branch)."""
+    plan = space if space is None or isinstance(space, SpacePlan) else SpacePlan(space)
     model.space = model.aspp.space = model.head.space = plan
+    pooled = getattr(model.aspp, f"ConvBN_{model.aspp.n_rates + 1}").BatchNorm_0
+    for mod in model.modules():
+        if isinstance(mod, BatchNorm):
+            mod.space = None if plan is None or mod is pooled else plan.group
     level = 0
     for backbone in (model.him, model.lom):
         for j in range(backbone.n):

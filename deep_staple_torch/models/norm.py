@@ -30,7 +30,12 @@ of every rank, as the JAX step's are under GSPMD: the ranks' means are
 averaged, through an all-reduce that carries the gradient in 'batch' mode;
 with a model axis that group is the ranks of this rank's model index, and a
 BatchNorm after a column conv holds its rank's channels (`parallel/
-tensor.py`), one after a row conv all of them. The running statistics are updated in
+tensor.py`), one after a row conv all of them. With a space group (`space`,
+set by `models/lraspp3d.py::attach_space_group` where the input is a slab
+of H) the slabs may differ by a row, so the means there are the sums over
+the group (float64, with the count, through the same kind of all-reduce)
+over the global count, then averaged over the data group as above; 'slab'
+subsamples D, which no space group splits. The running statistics are updated in
 place, once per forward: a checkpointed recomputation (`models/remat.py`)
 makes no update and normalizes as the first run did.
 """
@@ -45,13 +50,20 @@ from . import remat
 SLAB_STRIDE = 4
 
 
-def _moments(x, data=None):
+def _moments(x, data=None, space=None):
     """E[x] and E[x^2] over every axis but the last, in float32 (float64 for
-    a float64 x); over every rank's rows with a data group (equal row counts,
-    so the mean of the ranks' means)."""
+    a float64 x); over the space group's slabs with a space group (their
+    sums and counts summed), then over every rank's rows with a data group
+    (equal row counts, so the mean of the ranks' means)."""
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
     axes = tuple(range(x.dim() - 1))
-    mean, mean2 = xf.mean(axes), (xf * xf).mean(axes)
+    if space is None:
+        mean, mean2 = xf.mean(axes), (xf * xf).mean(axes)
+    else:
+        sums = torch.stack([xf.sum(axes), (xf * xf).sum(axes)]).double()
+        count = sums.new_full((1, sums.shape[1]), float(xf.numel() // xf.shape[-1]))
+        tot = space.sum(torch.cat([sums, count]))
+        mean, mean2 = (tot[:2] / tot[2]).to(xf.dtype).unbind(0)
     if data is None:
         return mean, mean2
     return data.mean(torch.stack([mean, mean2])).unbind(0)
@@ -69,6 +81,7 @@ class BatchNorm(nn.Module):
             raise ValueError(f"bn_mode {bn_mode!r} (expected 'batch', 'async' or 'slab')")
         self.bn_mode = bn_mode
         self.data = None  # the data group of a data-parallel step
+        self.space = None  # the space group where the input is a slab of H
         self.momentum = momentum
         self.epsilon = epsilon
         self.scale = nn.Parameter(torch.ones(num_features))
@@ -99,7 +112,7 @@ class BatchNorm(nn.Module):
         if not train:
             return self._affine(x, self.mean, self.var)
         if self.bn_mode == "batch":
-            mean, mean2 = _moments(x, self.data)
+            mean, mean2 = _moments(x, self.data, self.space)
             var = torch.clamp(mean2 - mean * mean, min=0.0)
             self._update(mean.detach(), var.detach(), seeded=False)
             return self._affine(x, mean, var)
@@ -109,12 +122,12 @@ class BatchNorm(nn.Module):
             mean, var = remat.keep(lambda: (self.mean.clone(), self.var.clone()))
             y = self._affine(x, mean, var)
             with torch.no_grad():
-                b_mean, b_mean2 = _moments(x, self.data)
+                b_mean, b_mean2 = _moments(x, self.data, self.space)
             self._update(b_mean, b_mean2 - b_mean * b_mean, seeded=True)
             return y
         xs = x[:, ::SLAB_STRIDE] if x.dim() == 5 and x.shape[1] >= SLAB_STRIDE else x
         with torch.no_grad():
-            mean, mean2 = _moments(xs, self.data)
+            mean, mean2 = _moments(xs, self.data, self.space)
             var = mean2 - mean * mean
         self._update(mean, var, seeded=True)
         return self._affine(x, mean, var)

@@ -53,16 +53,29 @@ def dice3d(predicted_lbls, target_lbls, one_hot_torch_style: bool,
     return _dice_nd(predicted_lbls, target_lbls, one_hot_torch_style, nan_for_unlabeled_target)
 
 
-def dice_from_int_labels(pred, target, num_classes: int, nan_for_unlabeled_target: bool = True):
-    """(B, *spatial) integer maps -> (B, num_classes) float32 Dice."""
+def dice_counts(pred, target, num_classes: int):
+    """(B, *spatial) integer maps -> (3, B, num_classes) int64: per sample
+    and class the voxels where both are the class, where pred is, where
+    target is. Counts of slabs of a volume sum to the volume's."""
     reduce_axes = tuple(range(1, pred.dim()))
     outs = []
     for c in range(num_classes):
         p = pred == c
         t = target == c
-        outs.append(_ratio((p & t).sum(dim=reduce_axes).float(), p.sum(dim=reduce_axes).float(),
-                           t.sum(dim=reduce_axes).float(), nan_for_unlabeled_target))
+        outs.append(torch.stack([(p & t).sum(dim=reduce_axes), p.sum(dim=reduce_axes),
+                                 t.sum(dim=reduce_axes)]))
     return torch.stack(outs, dim=-1)
+
+
+def dice_from_counts(counts, nan_for_unlabeled_target: bool = True):
+    """`dice_counts`' (3, B, num_classes) -> (B, num_classes) float32 Dice."""
+    tp, pc, tc = counts.float().unbind(0)
+    return _ratio(tp, pc, tc, nan_for_unlabeled_target)
+
+
+def dice_from_int_labels(pred, target, num_classes: int, nan_for_unlabeled_target: bool = True):
+    """(B, *spatial) integer maps -> (B, num_classes) float32 Dice."""
+    return dice_from_counts(dice_counts(pred, target, num_classes), nan_for_unlabeled_target)
 
 
 def _host(b_dice) -> np.ndarray:

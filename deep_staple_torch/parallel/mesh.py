@@ -23,8 +23,11 @@ JAX's `make_mesh` (`deep_staple_tpu/parallel/mesh.py:25-30`, reshaped to
 (data, space, model)): the data group of a rank is the D ranks of its
 (s, m), its space group the S ranks of its (d, m), its model group the M
 ranks of its (d, s) (`make_grid`). The step's sums over the batch span the
-data group only; the ranks of a model group hold the same rows, and those
-of a space group the same rows cut along H.
+data group and the space group: the ranks of a model group hold the same
+rows, and those of a space group the same rows cut along H, so that a
+rank's share of a sum is its rows' slab (`train/step.py`). The 2D model's
+slices are independent: its D x S ranks are one data group
+(`batch_group`).
 """
 
 from __future__ import annotations
@@ -37,26 +40,34 @@ import torch.distributed as dist
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """Sum over the ranks, whose gradient is the sum of the ranks'
+    """Sum over the ranks of `group` (a group below, or a stand-in with the
+    same in-place `all_reduce`), whose gradient is the sum of the ranks'
     gradients: the step's loss is the sum of the ranks' shares, so a rank's
     input feeds every rank's share through the sum."""
 
     @staticmethod
     def forward(ctx, tensor, group):
         ctx.group = group
-        out = tensor.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out, group=group)
-        return out
+        return group.all_reduce(tensor.clone(memory_format=torch.contiguous_format))
 
     @staticmethod
     def backward(ctx, grad):
-        grad = grad.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(grad, group=ctx.group)
-        return grad, None
+        return ctx.group.all_reduce(grad.clone(memory_format=torch.contiguous_format)), None
+
+
+class _Sums:
+    """`sum` for a group with an in-place `all_reduce`."""
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of `t` over the ranks, a new tensor; differentiable (the
+        gradient summed over the ranks too) when `t` requires grad."""
+        if t.requires_grad:
+            return _AllReduceSum.apply(t, self)
+        return self.all_reduce(t.clone(memory_format=torch.contiguous_format))
 
 
 @dataclass(frozen=True)
-class DataGroup:
+class DataGroup(_Sums):
     """This rank's place on the data axis: `size` ranks of the process group
     `group` (None: the default group), this one `rank`, on `device`, over
     `backend` ('nccl' or 'gloo')."""
@@ -74,14 +85,10 @@ class DataGroup:
         per = n // self.size
         return slice(self.rank * per, (self.rank + 1) * per)
 
-    def sum(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum of `t` over the ranks, a new tensor; differentiable (the
-        gradient summed over the ranks too) when `t` requires grad."""
-        if t.requires_grad:
-            return _AllReduceSum.apply(t, self.group)
-        out = t.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out, group=self.group)
-        return out
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum `t` over the ranks, in place."""
+        dist.all_reduce(t, group=self.group)
+        return t
 
     def mean(self, t: torch.Tensor) -> torch.Tensor:
         """The mean of `t` over the ranks (of equal row counts)."""
@@ -134,7 +141,7 @@ class ModelGroup:
 
 
 @dataclass(frozen=True)
-class SpaceGroup:
+class SpaceGroup(_Sums):
     """This rank's place on the space axis (`parallel/spatial.py`): `size`
     ranks of the process group `group` (None: the default group) over
     `backend`, this one `rank`; each holds a slab of every volume's H
@@ -146,8 +153,9 @@ class SpaceGroup:
     backend: str = "gloo"
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum `t` over the ranks, in place."""
-        dist.all_reduce(t, group=self.group)
+        """Sum `t` over the ranks, in place (a group of one rank: `t`)."""
+        if self.size > 1:
+            dist.all_reduce(t, group=self.group)
         return t
 
 
@@ -191,6 +199,27 @@ def make_grid(device, model_axis: int = 1, space_axis: int = 1):
     model = None if M == 1 else ModelGroup(rank=m, size=M, group=model_groups[(d, s)],
                                            root=at(d, s, 0))
     return data, model, space
+
+
+def batch_group(device, model_axis: int = 1) -> Optional[DataGroup]:
+    """The D x S ranks of this rank's model index in the grid of
+    `make_grid` as one data group, rank d * S + s (None for one rank): the
+    2D model's slices are independent, so a space axis splits the batch's
+    rows as the data axis does. Every rank calls it, after `make_grid`,
+    making the M groups in the same order; with no model axis the group is
+    the whole world."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return None
+    world, rank = dist.get_world_size(), dist.get_rank()
+    M = max(model_axis, 1)
+    n = world // M
+    if n == 1:
+        return None
+    q, m = divmod(rank, M)
+    groups = [dist.group.WORLD if M == 1 else dist.new_group([i * M + k for i in range(n)])
+              for k in range(M)]
+    return DataGroup(rank=q, size=n, device=torch.device(device), backend=dist.get_backend(),
+                     group=None if M == 1 else groups[m])
 
 
 def shard_batch(batch: dict, data: Optional[DataGroup]) -> dict:

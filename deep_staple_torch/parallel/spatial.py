@@ -1,11 +1,12 @@
-"""Spatial sharding: whole-volume inference over a space axis of ranks.
+"""Spatial sharding: whole-volume inference and training over a space axis.
 
 The counterpart of `deep_staple_tpu/parallel/spatial.py`. There a volume's
 H axis (axis 2 of B, D, H, W) is one `NamedSharding` over the mesh axis
 'space', and GSPMD adds the halo exchanges of every conv whose window
-crosses a shard's edge. Here the space axis is S ranks of a process group
-(`parallel/mesh.py::SpaceGroup`, one process a rank), and each exchange is
-explicit code in the model's layers (`models/lraspp3d.py`):
+crosses a shard's edge, and their adjoints. Here the space axis is S ranks
+of a process group (`parallel/mesh.py::SpaceGroup`, one process a rank),
+and each exchange is explicit code in the model's layers
+(`models/lraspp3d.py`):
 
   * `slab_map` splits the model's three H grids (the input, the stride-2
     level, the stride-4 level) so that the slabs line up across the
@@ -29,7 +30,20 @@ the libraries' convs and matmuls round alike at the slab's shape: the halo
 rows are the rows themselves, the depthwise kernel (K2) computes each
 output alike at any extent, and a resize whose extents differ by a power
 of two runs `F.interpolate` on the slab with the source rows of the global
-grid. Forward only: the exchanges' adjoints come with slice 6d.
+grid.
+
+Every exchange but `gather_slabs` is differentiable (`parallel/mesh.py::
+_AllReduceSum`): the buffer is built out of place and summed over the
+group, and its gradient is again the sum over the group, because the step's
+loss is the sum of the ranks' shares (`train/step.py`). So a window's gradient rows go back to the
+ranks that own them: each rank scatters its window's gradient into the
+buffer's rows, the buffer is summed, and each owner takes its rows.
+bfloat16 rows and their gradients travel as float32 over gloo. Every rank
+issues the backward's sums in the same order, because every rank builds the
+same graph (each computes the same list of needed rows). `window_rows`
+counts the buffers it sums: `.bytes` / `.calls` in the forward, `.replay_bytes`
+/ `.replay_calls` in a recomputation of `models/remat.py`, `.grad_bytes` /
+`.grad_calls` in the backward (`reset_counts`).
 """
 
 from __future__ import annotations
@@ -40,7 +54,7 @@ import numpy as np
 import torch
 
 from ..ops.resample import resize_ndhwc
-from .mesh import SpaceGroup
+from .mesh import SpaceGroup, _AllReduceSum
 
 # The model's halvings of H: block 0's stride-2 conv and block 6's stride-2
 # depthwise conv (`models/lraspp3d.py`, `MID_STRIDE`); levels 0, 1, 2.
@@ -111,6 +125,24 @@ def _carrier(t: torch.Tensor, space: SpaceGroup) -> torch.dtype:
     return t.dtype
 
 
+def _tally(backward: bool, t: torch.Tensor) -> None:
+    """Count a halo buffer summed in the forward, in a recomputation of
+    `models/remat.py` or in the backward, on `window_rows`."""
+    from ..models.remat import replaying
+
+    kind = "grad_" if backward else "replay_" if replaying() else ""
+    setattr(window_rows, f"{kind}bytes",
+            getattr(window_rows, f"{kind}bytes") + t.numel() * t.element_size())
+    setattr(window_rows, f"{kind}calls", getattr(window_rows, f"{kind}calls") + 1)
+
+
+def reset_counts() -> None:
+    """Set every exchange count of `window_rows` to 0."""
+    for kind in ("", "replay_", "grad_"):
+        setattr(window_rows, f"{kind}bytes", 0)
+        setattr(window_rows, f"{kind}calls", 0)
+
+
 def _runs(rows: Sequence[int]):
     """Maximal runs of consecutive ints in sorted `rows` -> (first, count)."""
     out = []
@@ -128,33 +160,38 @@ def window_rows(x: torch.Tensor, axis: SlabAxis, windows: Sequence[tuple]) -> to
     collective: every rank passes every rank's window). Rows outside the
     volume are zero. Each row that some rank reads from another goes into
     one buffer at its place in the sorted list of such rows; each owner
-    writes its rows and the buffer is summed over the group (x + 0 is x).
-    Counts the buffer's bytes in `window_rows.bytes` and its exchanges in
-    `window_rows.calls`."""
+    puts its rows there, zeros elsewhere, and the buffer is summed over the
+    group (x + 0 is x). Differentiable: the gradient of a row read by
+    another rank comes back to its owner through the same sum."""
     space, H = axis.group, axis.extent
     need = sorted({g for r, (g0, g1) in enumerate(windows)
                    for g in range(max(g0, 0), min(g1, H))
                    if not axis.bounds[r] <= g < axis.bounds[r + 1]})
     start, stop = axis.start, axis.stop
     at = {g: i for i, g in enumerate(need)}
-    buf = None
-    if need:
-        shape = list(x.shape)
-        shape[2] = len(need)
-        buf = x.new_zeros(shape, dtype=_carrier(x, space))
-        for g, n in _runs([g for g in need if start <= g < stop]):
-            buf.narrow(2, at[g], n).copy_(x.narrow(2, g - start, n))
-        space.all_reduce(buf)
-        window_rows.bytes += buf.numel() * buf.element_size()
-        window_rows.calls += 1
-    g0, g1 = windows[space.rank]
-    pieces = []
 
-    def zeros(n):
+    def zeros(n, dtype=x.dtype):
         shape = list(x.shape)
         shape[2] = n
-        return x.new_zeros(shape)
+        return x.new_zeros(shape, dtype=dtype)
 
+    buf = None
+    if need:
+        carrier = _carrier(x, space)
+        own = [g for g in need if start <= g < stop]  # one run of the buffer's rows
+        # An empty run of x where this rank owns no needed row: the sum
+        # then has a backward on every rank, as the buffer's read below.
+        parts = [zeros(len(need), carrier), x.narrow(2, 0, 0).to(carrier)]
+        if own:
+            parts = ([zeros(at[own[0]], carrier)]
+                     + [x.narrow(2, g - start, n).to(carrier) for g, n in _runs(own)]
+                     + [zeros(len(need) - at[own[0]] - len(own), carrier)])
+        buf = _AllReduceSum.apply(torch.cat(parts, dim=2), space)
+        _tally(False, buf)
+        if buf.requires_grad:  # the gradient is summed as the buffer was
+            buf.register_hook(lambda grad: _tally(True, grad))
+    g0, g1 = windows[space.rank]
+    pieces, read = [], False
     g = g0
     while g < g1:
         if g < 0 or g >= H:  # outside the volume
@@ -166,14 +203,20 @@ def window_rows(x: torch.Tensor, axis: SlabAxis, windows: Sequence[tuple]) -> to
         else:  # another rank's: a run of the buffer
             n = min(g1, H, start if g < start else g1) - g
             pieces.append(buf.narrow(2, at[g], n).to(x.dtype))
+            read = True
         g += n
+    if buf is not None and not read:
+        # An empty run of the buffer: a rank that reads no other rank's row
+        # still joins the sum of the buffer's gradient, which carries its
+        # rows' gradients back from the ranks that read them (autograd runs
+        # a sum's backward only on a rank whose loss depends on it).
+        pieces.append(buf.narrow(2, 0, 0).to(x.dtype))
     if len(pieces) == 1:
         return pieces[0].contiguous()
     return torch.cat(pieces, dim=2)
 
 
-window_rows.bytes = 0
-window_rows.calls = 0
+reset_counts()
 
 
 def halo_rows(x: torch.Tensor, lo: int, hi: int, axis: SlabAxis) -> torch.Tensor:
@@ -211,7 +254,7 @@ def space_mean(x: torch.Tensor, axis: Optional[SlabAxis] = None) -> torch.Tensor
     s = x.sum(dim=(1, 2, 3), keepdim=True, dtype=torch.float64)
     H = x.shape[2]
     if axis is not None:
-        axis.group.all_reduce(s)
+        s = _AllReduceSum.apply(s, axis.group)
         H = axis.extent
     return (s / (x.shape[1] * H * x.shape[3])).to(x.dtype)
 
@@ -276,7 +319,8 @@ def resize_h(x: torch.Tensor, src: SlabAxis, dst: SlabAxis, out_dw) -> torch.Ten
 
 def gather_slabs(t: torch.Tensor, axis: SlabAxis, dim: int = 2) -> torch.Tensor:
     """The full axis `dim` of a tensor split by `axis` (t this rank's slab),
-    on every rank: each slab in a zero buffer, summed over the group."""
+    on every rank: each slab in a zero buffer, summed over the group.
+    Forward only: it gathers integer argmaxes, which carry no gradient."""
     shape = list(t.shape)
     shape[dim] = axis.extent
     full = t.new_zeros(shape, dtype=_carrier(t, axis.group))

@@ -67,8 +67,23 @@ need them all, and rank 0 writes. The 2D model has no leaf that the rules
 shard and runs replicated over the model group, as JAX's `shard_tp` leaves
 it.
 
-Options of a later slice raise NotImplementedError naming it: spatial
-sharding (slices 6c and 6d), and JAX's orbax checkpoints.
+Spatial sharding (`mesh_space_axis` S > 1, `parallel/spatial.py`): the world
+is a grid of D x S x M ranks, rank (d * S + s) * M + m, one device a rank,
+where JAX shards the batch's H axis over devices of one process
+(`driver.py:256-276`, `:486-492`). The S ranks of a space group load the
+same rows (by their data index d) and keep the same rows of the global
+draws; each warps its rows' whole volumes and the 3D model keeps a slab of
+every volume's H axis (`train/step.py`). The input H of training and of
+validation must leave every rank a row of the model's stride-4 grid
+(`spatial.slab_map`); the driver checks both before any other work.
+Validation, the slab warm-up model and the snapshot's predictions run on
+every rank through the sharded model, whose exchanges need the whole
+group, and rank 0 writes; the state is replicated over the space group, so
+a checkpoint needs no gather there. The 2D model's slices are independent:
+its D x S ranks form one data group (`parallel/mesh.py::batch_group`),
+whose batch must divide by D x S, where JAX splits the slices' W axis.
+
+JAX's orbax checkpoints raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -85,13 +100,15 @@ from ..core.config import DataParamMode, TrainConfig
 from ..core.determinism import reset_determinism
 from ..core.device import resolve_device
 from ..models import LRASPPMobileNetV3Large2D, MobileNetLRASPP3D
+from ..models.lraspp3d import attach_space_group
 from ..ops.augment import AugmentDraws, AugmentParams, check_order, draw_augment
 from ..ops.dice import batch_dice_over_all, batch_dice_per_class, dice_from_int_labels
 from ..ops.resample import interpolate_sample
-from ..parallel.mesh import make_data_group, make_grid
+from ..parallel.mesh import batch_group, make_data_group, make_grid
 from ..parallel.multihost import (
     check_resume_agrees, coordination_barrier, host_shard_indices, replicate_to_mesh,
 )
+from ..parallel.spatial import slab_map
 from ..parallel.tensor import attach_model_group, gather_train_state, shard_train_state
 from ..utils.logging import MetricWriter, get_global_idx, log_class_dices, log_data_parameter_stats
 from .checkpoint import (
@@ -165,7 +182,8 @@ def make_warmup_model(model, config: TrainConfig, num_classes: int):
     """The model of the first `bn_warmup_epochs` under async BatchNorm: the
     same network with slab BatchNorm, sharing every parameter and buffer
     (`count` included) with `model`, so that one optimizer and one set of
-    running statistics serve both phases (`driver.py:393-418`)."""
+    running statistics serve both phases (`driver.py:393-418`), and its
+    model group and space plan."""
     warm, _ = make_model(config.replace(bn_mode="slab"), num_classes)
     mods = dict(model.named_modules())
     for name, mod in warm.named_modules():
@@ -173,6 +191,8 @@ def make_warmup_model(model, config: TrainConfig, num_classes: int):
         mod._buffers = mods[name]._buffers
     if getattr(model, "tp", None) is not None:
         attach_model_group(warm, model.tp)
+    if getattr(model, "space", None) is not None:
+        attach_space_group(warm, model.space)
     return warm
 
 
@@ -214,23 +234,21 @@ def _world_size() -> int:
 
 def check_supported(config: TrainConfig):
     """Raise for options that cannot run as configured, before any work:
-    NotImplementedError for an option that a later slice brings, ValueError
-    for data and model axes that do not match the processes."""
-    if config.mesh_space_axis > 1:
-        raise NotImplementedError(
-            "spatial sharding in training (mesh_space_axis > 1) comes with slice 6d of the "
-            "port; whole-volume inference over a space axis runs (serve --mesh-space, "
-            "parallel/spatial.py)")
+    ValueError for data, space and model axes that do not match the
+    processes (the space axis with pipeline stages raises in TrainConfig
+    itself, as JAX's config does), and for a 2D batch that does not divide
+    over data x space."""
     nproc = _world_size()
     if (config.dist_num_processes or 1) > 1 and nproc == 1:
         raise ValueError(
             f"dist_num_processes={config.dist_num_processes} but this process joined no process "
             "group: call main.maybe_init_distributed(config) first")
-    ranks = config.mesh_data_axis * config.mesh_model_axis
+    D, S, M = config.mesh_data_axis, config.mesh_space_axis, config.mesh_model_axis
+    ranks = D * S * M
+    axes = " x ".join(f"mesh_{name}_axis={n}" for name, n in (("data", D), ("space", S),
+                                                              ("model", M))
+                      if n > 1 or (name == "data" and ranks > D))
     if nproc == 1 and ranks > 1:
-        axes = (f"mesh_data_axis={config.mesh_data_axis} x mesh_model_axis="
-                f"{config.mesh_model_axis}" if config.mesh_model_axis > 1
-                else f"mesh_data_axis={ranks}")
         raise ValueError(
             f"{axes} runs one process a rank: launch {ranks} processes with "
             f"--dist-num-processes {ranks} (each with --dist-process-id and --dist-coordinator, "
@@ -240,15 +258,20 @@ def check_supported(config: TrainConfig):
             raise ValueError(
                 "mesh_pipe_stages > 1 is single-process only (stages are placed on explicit "
                 "local devices)")
-        if config.mesh_model_axis == 1 and config.mesh_data_axis % nproc:
+        if M == 1 and S == 1 and D % nproc:
             raise ValueError(
-                f"mesh_data_axis={config.mesh_data_axis} must divide over {nproc} processes "
+                f"mesh_data_axis={D} must divide over {nproc} processes "
                 "(equal batch rows per host)")
         if ranks != nproc:
             raise ValueError(
-                f"mesh_data_axis={config.mesh_data_axis} x mesh_model_axis="
-                f"{config.mesh_model_axis} over {nproc} processes: the port runs one device a "
-                "rank, so data x model is the number of processes")
+                f"mesh_data_axis={D} x mesh_space_axis={S} x mesh_model_axis={M} over {nproc} "
+                "processes: the port runs one device a rank, so data x space x model is the "
+                "number of processes")
+    if config.use_2d_normal_to is not None and S > 1 and config.batch_size % (D * S):
+        raise ValueError(
+            f"batch_size {config.batch_size} must divide by mesh_data_axis x mesh_space_axis = "
+            f"{D * S}: the 2D model's slices are independent, so the space axis splits the "
+            "batch's slices as the data axis does")
     check_order(config.augment_order)
     if config.save_dp_figures or config.do_plot:
         from ..utils.visualization import require_plotting
@@ -320,9 +343,18 @@ def train_dl(run_name: str, config: TrainConfig, dataset, atlas_count=None,
     {fold: {"state", "snapshot_path", "train_idxs", "clean_idxs", "wise_dice",
     "mean_step_time", "writer"}} as the JAX driver does."""
     check_supported(config)
+    use_2d = config.use_2d_normal_to is not None
+    if config.mesh_space_axis > 1 and not use_2d:
+        # Every rank of a space group needs a row of the model's stride-4
+        # grid, at the training input's H and at validation's x2.0.
+        H = dataset.get_3d_item(0)["image"].shape[1]
+        for scale in (dataset.pre_interpolation_factor, 2.0):
+            slab_map(int(H * scale), config.mesh_space_axis)
     dev = resolve_device(device)
     world = make_data_group(dev)  # every rank: the resume check, rank 0's state, barriers
-    data, tp, _ = make_grid(dev, config.mesh_model_axis)
+    data, tp, space = make_grid(dev, config.mesh_model_axis, config.mesh_space_axis)
+    if use_2d and space is not None:
+        data = batch_group(dev, config.mesh_model_axis)  # the D x S ranks split the slices
     is_main = world is None or world.rank == 0
     if world is not None:
         print(f"Device mesh: data={config.mesh_data_axis} space={config.mesh_space_axis} "
@@ -335,7 +367,6 @@ def train_dl(run_name: str, config: TrainConfig, dataset, atlas_count=None,
     )
 
     use_dp = config.data_param_mode == DataParamMode.INSTANCE_PARAMS
-    use_2d = config.use_2d_normal_to is not None
     num_classes = len(dataset.label_tags)
     results = {}
 
@@ -444,10 +475,11 @@ def train_dl(run_name: str, config: TrainConfig, dataset, atlas_count=None,
                     pre_interpolation_factor=pre_interp, n_micro=config.pipe_microbatches,
                     devices=pp_devices)
             return make_train_step(step_model, config, class_weights, fixed_weighting,
-                                   augment_params, pre_interpolation_factor=pre_interp, data=data)
+                                   augment_params, pre_interpolation_factor=pre_interp, data=data,
+                                   space=None if use_2d else space)
 
         train_step = build_step(model)
-        eval_step = make_eval_step(model, config, num_classes)
+        eval_step = make_eval_step(model, config, num_classes, space=space)
         # Async-BN warmup: the first bn_warmup_epochs run the slab-BN model,
         # which shares every parameter and buffer with `model`
         # (`driver.py:393-418`); the 2D model has no bn_mode.
@@ -490,8 +522,8 @@ def train_dl(run_name: str, config: TrainConfig, dataset, atlas_count=None,
 
             for bstart in range(0, len(perm), config.batch_size):
                 bidx = perm[bstart : bstart + config.batch_size]
-                # A multiple of the data axis, or of the microbatches.
-                split = config.mesh_data_axis if data is not None else (
+                # A multiple of the data group, or of the microbatches.
+                split = data.size if data is not None else (
                     config.pipe_microbatches if pp_devices is not None else 1)
                 bidx = bidx[: len(bidx) // split * split]
                 if len(bidx) == 0:
@@ -620,7 +652,7 @@ def train_dl(run_name: str, config: TrainConfig, dataset, atlas_count=None,
 
         # --- snapshot export (reference :963-1045) ---
         snapshot_path = None
-        if use_dp and not is_main and tp is not None:
+        if use_dp and not is_main and (tp is not None or (space is not None and not use_2d)):
             # The sharded model's predictions need every rank of its group.
             export_train_label_snapshot(None, state, model, config, dataset, train_idxs,
                                         disturbed_bool_vect, save_labels=config.save_labels)

@@ -11,8 +11,9 @@ the model's device in eval mode (on the card, the 3D model's: K2's forward)
 and sees the network's input features: with `use_mind` the MIND-SSC
 channels, which the JAX export leaves out (its `img2[..., None]` gives a
 12-channel model one channel, `snapshot.py:50`). A model sharded over a
-model axis (`parallel/tensor.py`) predicts on every rank of its group; a
-rank that does not write passes no path.
+model axis (`parallel/tensor.py`) or a space axis (`parallel/spatial.py`:
+each rank predicts its slab of H, and the slabs are gathered) predicts on
+every rank of its group; a rank that does not write passes no path.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 
 from ..data.snapshot_io import save_snapshot
 from ..ops.resample import interpolate_sample
+from ..parallel.spatial import gather_slabs
 from .state import DeepStapleState
 from .step import _featurize
 
@@ -59,6 +61,8 @@ def export_train_label_snapshot(
                                         eval_scale_factor, use_2d)
             x = _featurize(img2, config.use_mind, use_2d)
             pred = model(x, train=False)["out"].argmax(dim=-1).to(torch.int32)
+            if getattr(model, "space", None) is not None:
+                pred = gather_slabs(pred, model.space.axes[0])
             rows.append(
                 (
                     float(dp_weights[int(i)]),

@@ -44,17 +44,19 @@ round otherwise.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.distributed as dist
 
 from ..core.config import DataParamMode, TrainConfig
 from ..ops.augment import AugmentDraws, AugmentParams, augment_sample_pair, check_order, draw_augment
-from ..ops.dice import dice_from_int_labels
+from ..ops.dice import dice_counts, dice_from_counts, dice_from_int_labels
 from ..ops.mind import mindssc
 from ..ops.resample import interpolate_sample
 from ..ops.stacking import make_2d_stack_from_3d, make_3d_from_2d_stack
 from ..parallel.mesh import attach_data_group
-from ..parallel.spatial import SlabAxis, even_bounds, gather_slabs
+from ..parallel.spatial import SlabAxis, even_bounds, gather_slabs, slab_axes
 from ..parallel.tensor import replicated_parameters
 from .losses import dp_loss_fn, weighted_cross_entropy
 from .optim import set_lr, sparse_adam_update
@@ -94,6 +96,16 @@ def _swap_buffers(model, buffers):
     return held
 
 
+def _attach_space(model, space) -> None:
+    """Shard the 3D `model` over the space group `space` unless its plan is
+    already that group's (the driver's models share one plan)."""
+    plan = getattr(model, "space", None)
+    if space is not None and (plan is None or plan.group is not space):
+        from ..models.lraspp3d import attach_space_group
+
+        attach_space_group(model, space)
+
+
 def rank_draws(draws: AugmentDraws, data) -> AugmentDraws:
     """This rank's rows of the global batch's augmentation draws."""
     if data is None:
@@ -103,7 +115,8 @@ def rank_draws(draws: AugmentDraws, data) -> AugmentDraws:
 
 def make_train_step(model, config: TrainConfig, class_weights, fixed_weighting,
                     augment_params: AugmentParams = AugmentParams(),
-                    pre_interpolation_factor: float = 1.5, augment: bool = True, data=None):
+                    pre_interpolation_factor: float = 1.5, augment: bool = True, data=None,
+                    space=None):
     """Build `train_step(state, batch, lr, generator=None, draws=None)
     -> (state, metrics)`.
 
@@ -121,7 +134,10 @@ def make_train_step(model, config: TrainConfig, class_weights, fixed_weighting,
     rows of the global draws (`rank_draws`), `generator` is seeded alike on
     every rank, and the metrics are the global batch's (dice (B_global, C)).
     A model sharded by `parallel.tensor.shard_model` makes it a
-    tensor-parallel step over its model group as well.
+    tensor-parallel step over its model group as well. `space` (a
+    `parallel.mesh.SpaceGroup`) shards the 3D model's H axis over its ranks,
+    which pass the same batch: the metrics stay the global batch's on every
+    rank.
     """
     use_dp = config.data_param_mode == DataParamMode.INSTANCE_PARAMS
     use_2d = config.use_2d_normal_to is not None
@@ -141,24 +157,27 @@ def make_train_step(model, config: TrainConfig, class_weights, fixed_weighting,
     fixed_weighting = torch.as_tensor(fixed_weighting, dtype=torch.float32).to(device)
     async_bn = getattr(model, "bn_mode", "batch") == "async"
     attach_data_group(model, data)
+    _attach_space(model, space)
     tp = getattr(model, "tp", None)
     replicated = None if tp is None else {id(p) for p in replicated_parameters(model)}
 
     def total(share):
-        return share if data is None else data.sum(share)
+        for group in (data, space):
+            share = share if group is None else group.sum(share)
+        return share
 
     def forward(x, generator):
         return model(x, train=True, generator=generator)["out"]
 
-    def dp_objective(dp_logits, mod, dp_vec, idxs):
+    def dp_objective(dp_logits, mod, dp_vec, idxs, voxels):
         fixed = fixed_weighting[idxs] if config.use_fixed_weighting else None
         return dp_loss_fn(dp_logits, mod, dp_vec[idxs], fixed, config.use_risk_regularization,
-                          data)
+                          data, voxels)
 
     def apply_grads(state, params, grads, lr):
         grads = list(grads)
-        if data is not None:
-            flat = data.sum(torch.cat([g.reshape(-1) for g in grads]))
+        if data is not None or space is not None:
+            flat = total(torch.cat([g.reshape(-1) for g in grads]))
             grads = [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads]), grads)]
         rep = [i for i, p in enumerate(params) if id(p) in replicated] if replicated else []
         if rep:
@@ -187,23 +206,29 @@ def make_train_step(model, config: TrainConfig, class_weights, fixed_weighting,
         params = [p for p in model.parameters() if p.requires_grad]
         metrics = {}
         dp_grads = None
+        voxels = None
+        if space is not None:
+            # The logits are this rank's slab of H: the labels' rows too.
+            voxels = math.prod(img.shape[1:])
+            rows = slab_axes(img.shape[2], space)[0]
+            lbl, mod = lbl[:, :, rows.start:rows.stop], mod[:, :, rows.start:rows.stop]
 
         if use_dp and not config.use_ool_dp_loss:
             # One forward; the DP loss updates the model and the DP vector.
             dp_vec = state.dp_params.detach().clone().requires_grad_(True)
             logits = forward(x, generator)
-            dp_loss = dp_objective(logits, mod, dp_vec, idxs)
+            dp_loss = dp_objective(logits, mod, dp_vec, idxs, voxels)
             *grads, dp_grads = torch.autograd.grad(dp_loss, params + [dp_vec])
             apply_grads(state, params, grads, lr)
             logits = logits.detach()
             with torch.no_grad():
-                ce_loss = total(weighted_cross_entropy(logits, mod, class_weights, data))
+                ce_loss = total(weighted_cross_entropy(logits, mod, class_weights, data, space))
             metrics["dp_loss"] = total(dp_loss.detach())
         else:
             strict_async = use_dp and config.ool_mode == "strict" and async_bn
             start = {n: b.clone() for n, b in model.named_buffers()} if strict_async else None
             logits = forward(x, generator)
-            ce_loss = weighted_cross_entropy(logits, mod, class_weights, data)
+            ce_loss = weighted_cross_entropy(logits, mod, class_weights, data, space)
             apply_grads(state, params, torch.autograd.grad(ce_loss, params), lr)
             logits, ce_loss = logits.detach(), total(ce_loss.detach())
             if use_dp:
@@ -219,13 +244,13 @@ def make_train_step(model, config: TrainConfig, class_weights, fixed_weighting,
                     dp_logits = logits
                 dp_vec = state.dp_params.detach().clone().requires_grad_(True)
                 with torch.enable_grad():
-                    dp_loss = dp_objective(dp_logits, mod, dp_vec, idxs)
+                    dp_loss = dp_objective(dp_logits, mod, dp_vec, idxs, voxels)
                 (dp_grads,) = torch.autograd.grad(dp_loss, [dp_vec])
                 metrics["dp_loss"] = total(dp_loss.detach())
 
         dp_params, dp_opt = state.dp_params, state.dp_opt_state
         if use_dp and not config.override_embedding_weights:
-            if data is None:
+            if data is None and space is None:
                 touched = torch.zeros_like(dp_params, dtype=torch.bool)
                 touched[idxs] = True
             else:
@@ -233,13 +258,17 @@ def make_train_step(model, config: TrainConfig, class_weights, fixed_weighting,
                 # one reduction.
                 hit = torch.zeros_like(dp_grads)
                 hit[idxs] = 1.0
-                both = data.sum(torch.cat([dp_grads, hit]))
+                both = total(torch.cat([dp_grads, hit]))
                 dp_grads, touched = both[: len(hit)], both[len(hit):] > 0
             dp_params, dp_opt = sparse_adam_update(dp_params, dp_grads, dp_opt, touched,
                                                    config.lr_inst_param)
 
         with torch.no_grad():
-            metrics["dice"] = dice_from_int_labels(logits.argmax(dim=-1), lbl, num_classes)
+            if space is None:
+                metrics["dice"] = dice_from_int_labels(logits.argmax(dim=-1), lbl, num_classes)
+            else:  # the slabs' integer counts, summed over the space group
+                metrics["dice"] = dice_from_counts(
+                    space.sum(dice_counts(logits.argmax(dim=-1), lbl, num_classes)))
             if data is not None:
                 metrics["dice"] = data.gather_rows(metrics["dice"])
         metrics["ce_loss"] = ce_loss
@@ -273,10 +302,8 @@ def make_eval_step(model, config: TrainConfig, num_classes: int, eval_scale_fact
     every rank.
     """
     stack_dim = config.use_2d_normal_to
-    if space is not None and stack_dim is None:
-        from ..models.lraspp3d import attach_space_group
-
-        attach_space_group(model, space)
+    if stack_dim is None:
+        _attach_space(model, space)
 
     def eval_step(batch):
         with torch.inference_mode():

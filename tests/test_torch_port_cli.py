@@ -117,16 +117,16 @@ def test_cli_without_cuda_raises_before_any_output(tmp_path, monkeypatch, cli):
 @pytest.mark.parametrize("cli, extra, slice_name", [
     (pipeline_mod, ["--dist-num-processes", "2"], "--dist-process-id"),
     (main_mod, ["--dist_num_processes", "2"], "--dist-process-id"),
-    (main_mod, ["--mesh-space-axis", "2"], "slice 6d"),
+    (main_mod, ["--mesh-space-axis", "2"], "launch 2 processes with --dist-num-processes 2"),
 ])
 def test_unported_cli_options_raise_before_training(tmp_path, monkeypatch, cli, extra, slice_name):
-    """A multi-process launch without its rank and coordinator, and the
-    spatial sharding in training (slice 6d), raise before any data is read."""
+    """A multi-process launch without its rank and coordinator, and a space
+    axis in one process (it runs one process a rank), raise before any data
+    is read."""
     monkeypatch.setattr(main_mod, "prepare_data", lambda cfg: pytest.fail("data was read"))
     for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
         monkeypatch.delenv(k, raising=False)
-    err = NotImplementedError if slice_name == "slice 6d" else ValueError
-    with pytest.raises(err, match=slice_name):
+    with pytest.raises(ValueError, match=slice_name):
         cli.main(_argv(tmp_path, "--device", "cpu", *extra))
     assert not (tmp_path / "out").exists()
 

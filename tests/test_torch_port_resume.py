@@ -128,7 +128,6 @@ def test_checkpoint_round_trip_and_backends(tmp_path):
 
 
 @pytest.mark.parametrize("kw, slice_name", [
-    (dict(mesh_space_axis=2), "slice 6d"),
     (dict(checkpoint_backend="orbax"), "state.pt"),
 ])
 def test_unported_options_raise(tmp_path, kw, slice_name):
@@ -141,12 +140,13 @@ def test_unported_options_raise(tmp_path, kw, slice_name):
 @pytest.mark.parametrize("kw, match", [
     (dict(mesh_data_axis=2), "launch 2 processes with --dist-num-processes 2"),
     (dict(mesh_model_axis=2), "launch 2 processes with --dist-num-processes 2"),
+    (dict(mesh_space_axis=2), "launch 2 processes with --dist-num-processes 2"),
     (dict(dist_num_processes=2), "maybe_init_distributed"),
 ])
 def test_parallel_options_need_their_processes(tmp_path, kw, match):
-    """Data and tensor parallelism run one process a rank: in a single
-    process, a data or model axis above 1 or a process count without a
-    process group raises before any work."""
+    """Data, tensor and spatial parallelism run one process a rank: in a
+    single process, a data, model or space axis above 1 or a process count
+    without a process group raises before any work."""
     cfg = TrainConfig(output_dir=str(tmp_path / "out"), **kw)
     with pytest.raises(ValueError, match=match):
         pd.train_dl("x", cfg, None, device="cpu")

@@ -164,16 +164,20 @@ def test_mesh_space_refusals(served, monkeypatch):
     assert not torch.distributed.is_initialized()
 
 
-def test_training_over_a_space_axis_still_refused(tmp_path):
-    """`mesh_space_axis > 1` in training names slice 6d, and a sharded
-    model refuses a train-mode forward."""
+def test_training_over_a_space_axis_still_refused(tmp_path, monkeypatch):
+    """Training over a space axis runs (the name is from when it was
+    refused): a sharded model runs a train-mode forward (on a group of one
+    rank of a space axis of 1, which exchanges nothing) and returns its
+    slab, and `check_supported` takes `mesh_space_axis` given D x S x M
+    processes."""
     from deep_staple_torch.core.config import TrainConfig
     from deep_staple_torch.models.lraspp3d import MobileNetLRASPP3D, attach_space_group
     from deep_staple_torch.parallel.mesh import SpaceGroup
-    from deep_staple_torch.train.driver import check_supported
+    from deep_staple_torch.train import driver
 
-    with pytest.raises(NotImplementedError, match="slice 6d"):
-        check_supported(TrainConfig(mesh_space_axis=2, output_dir=str(tmp_path)))
-    model = attach_space_group(MobileNetLRASPP3D(use_checkpointing=False), SpaceGroup(0, 2))
-    with pytest.raises(NotImplementedError, match="slice 6d"):
-        model(torch.zeros(1, 8, 8, 8, 1), train=True)
+    monkeypatch.setattr(driver, "_world_size", lambda: 8)
+    driver.check_supported(TrainConfig(mesh_data_axis=2, mesh_space_axis=2, mesh_model_axis=2,
+                                       output_dir=str(tmp_path)))
+    model = attach_space_group(MobileNetLRASPP3D(use_checkpointing=False), SpaceGroup(0, 1))
+    y = model(torch.zeros(1, 8, 8, 8, 1), train=True, generator=torch.Generator())["out"]
+    assert y.shape == (1, 8, 8, 8, 2) and y.requires_grad

@@ -148,8 +148,8 @@ def test_tp_checkpoint_restores_in_one_process_bitwise(ranks, tmp_path):
 
 def test_model_axis_needs_data_x_model_processes(monkeypatch):
     """Data x model must be the number of processes, and a grid runs one
-    process a rank; the driver raises before any work. The space axis is a
-    later slice's."""
+    process a rank; the driver raises before any work. With a space axis,
+    data x space x model processes."""
     from deep_staple_torch.core.config import TrainConfig
     from deep_staple_torch.train import driver
 
@@ -163,5 +163,6 @@ def test_model_axis_needs_data_x_model_processes(monkeypatch):
     with pytest.raises(ValueError, match="launch 8 processes with --dist-num-processes 8"):
         driver.train_dl("tp-reject", TrainConfig(mesh_data_axis=2, mesh_model_axis=4, epochs=1),
                         None, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 6d"):
-        driver.train_dl("tp-reject", TrainConfig(mesh_space_axis=2, epochs=1), None, device="cpu")
+    with pytest.raises(ValueError, match="launch 4 processes with --dist-num-processes 4"):
+        driver.train_dl("tp-reject", TrainConfig(mesh_space_axis=2, mesh_model_axis=2, epochs=1),
+                        None, device="cpu")

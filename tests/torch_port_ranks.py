@@ -13,6 +13,7 @@ Run as a script, this module is one rank:
     python tests/torch_port_ranks.py step <rank> <world> <store> <out_dir> [case,...]
     python tests/torch_port_ranks.py tp <rank> <world> <store> <out_dir> [case,...]
     python tests/torch_port_ranks.py space <rank> 8 <store> <out_dir>
+    python tests/torch_port_ranks.py space_train <rank> 8 <store> <out_dir> [case,...]
     python tests/torch_port_ranks.py main <out_json> <main's argv ...>
     python tests/torch_port_ranks.py main_warm <out_json> <main's argv ...>
 
@@ -26,7 +27,11 @@ through the step cases, written as `step` writes them; `space` runs the
 eval forward of each `SPACE_CASES` case on a space group of its first S
 ranks and writes each rank's gathered logits and halo bytes
 (`run_space_case`), then `halo_rows` and `resize_h` on 3 ranks
-(`space_rows`); `main` runs
+(`space_rows`); `space_train` runs the adjoints of the exchanges
+(case "adjoints", `space_adjoints`), the float64 model gradients at space 4
+(case "grads", `space_model_grads`) and the step cases of
+`SPACE_STEP_CASES` named, each on its grid of the 8 ranks, written as `step`
+writes them; `main` runs
 `deep_staple_torch.main.main(argv)` and writes the rank's DP vector and
 what it wrote (the snapshot, the metrics file) to `<out_json>`, and its
 model's state_dict and AdamW moments (its shards, with a model axis) to
@@ -98,6 +103,54 @@ HALOS = ((1, 1), (2, 0), (0, 3), (5, 7), (16, 16))
 RESIZES = (5, 40, 6, 23, 10)
 
 
+# Training over a space axis (`parallel/spatial.py`, `train/step.py`): case
+# -> (TrainConfig fields, grid (data D, space S, model M) of the 8 ranks).
+# The step cases' batch (B 8, 16x16x12, x1.5) gives H = 24, whose 6 rows at
+# the model's stride 4 split 2, 2, 1, 1 over space 4 (`tests/
+# test_parallel.py:20-41`, `:172-199`); both optimizers start warm and the
+# step runs at SPACE_LR unless the case names its "lr". "preset":
+# "production" starts from `TrainConfig.tpu_production`; "augment" and
+# "dropout" as in STEP_CASES.
+SPACE_STEP_CASES = {
+    # JAX's gate: fused out-of-line, augmentation and dropout on.
+    "sp-fused": (dict(ool_mode="fused", use_checkpointing=False), (2, 4, 1)),
+    # Remat replays the exchanges; 'fast-sep' (K1's order) on whole volumes.
+    "sp-remat-sep": (dict(ool_mode="fused", bn_mode="async", use_checkpointing=True,
+                          augment_order="fast-sep"), (2, 4, 1)),
+    # `tests/test_parallel.py:735-774`: the production warp JAX keeps sharded.
+    "sp-int6": (dict(preset="production", compute_dtype="float32", augment_order="fast-int6",
+                     use_checkpointing=False), (2, 4, 1)),
+    # Strict out-of-line, async BatchNorm, dropout 0: a row permutation on
+    # one rank is the same arithmetic in another order (its spread bounds
+    # the DP loss, which follows the update).
+    "sp-strict-async": (dict(STEP_CASES["strict-async"], dropout=0.0, lr=0.01), (4, 2, 1)),
+    # All three axes, as JAX's dry run (`MULTICHIP_r05.json`).
+    "sp-compose": (dict(ool_mode="fused", use_checkpointing=False), (2, 2, 2)),
+    "sp-2d": (dict(use_2d_normal_to="D", ool_mode="fused"), (4, 2, 1)),
+    "sp-mind": (dict(use_mind=True, ool_mode="fused", use_checkpointing=False), (4, 2, 1)),
+    # For the JAX mesh comparison: no augmentation, no dropout.
+    "sp-jax": (dict(ool_mode="fused", use_checkpointing=False, augment=False, dropout=0.0),
+               (2, 4, 1)),
+}
+SPACE_LR = 1e-4
+# The exchanges' adjoints in float64 on space groups of the first S ranks:
+# S -> H rows of a (2, 3, H, 4, 5) tensor, split 4 + 3, 4 + 3 + 3 and one
+# row a rank; halos (lo, hi) below, at and above a slab's height up to the
+# ASPP's rate 16; resizes of the H rows to extents by powers of two (up and
+# down) and not.
+ADJ_H = {2: 7, 3: 10, 4: 4}
+ADJ_HALOS = ((1, 1), (2, 0), (0, 3), (5, 7), (16, 16))
+ADJ_RESIZES = {2: (14, 28, 10, 23), 3: (5, 20, 40, 13, 23), 4: (8, 16, 7, 23)}
+# The model's gradients at space 4 in float64, exact and async BatchNorm
+# (the reference and production modes), remat off and on, dropout on; H =
+# 24 splits the stride-4 rows 2, 2, 1, 1.
+GRAD_CASES = {"batch": dict(bn_mode="batch", use_checkpointing=False),
+              "batch-remat": dict(bn_mode="batch", use_checkpointing=True),
+              "async": dict(bn_mode="async", use_checkpointing=False),
+              "async-remat": dict(bn_mode="async", use_checkpointing=True)}
+GRAD_INPUT = (2, 8, 24, 12, 1)
+
+
 def clean_env(threads: int = 1) -> dict:
     env = dict(os.environ)
     env["PYTHONPATH"] = str(REPO)
@@ -111,13 +164,15 @@ def clean_env(threads: int = 1) -> dict:
 
 class Ranks:
     """One process for each argv (a rank each), started now; `wait` joins
-    them, each within `timeout` seconds of its start."""
+    them, each within `timeout` seconds of its start. `envs` (one dict a
+    rank) adds variables to each rank's environment."""
 
-    def __init__(self, argvs, timeout: float, env=None):
+    def __init__(self, argvs, timeout: float, env=None, envs=None):
         self.deadline = time.monotonic() + timeout
-        self.procs = [subprocess.Popen(argv, env=env or clean_env(), cwd=str(REPO),
-                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-                      for argv in argvs]
+        self.procs = [subprocess.Popen(argv, env={**(env or clean_env()), **(envs[i] if envs else {})},
+                                       cwd=str(REPO), stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)
+                      for i, argv in enumerate(argvs)]
         self.outs = None
 
     def wait(self, check: bool = True):
@@ -147,14 +202,19 @@ class Ranks:
                 p.communicate()
 
 
-def step_batch():
+def step_batch(spatial=SPATIAL):
     rng = np.random.RandomState(0)
     return {
-        "image": rng.randn(GLOBAL_B, *SPATIAL).astype(np.float32),
-        "label": (rng.rand(GLOBAL_B, *SPATIAL) > 0.8).astype(np.int32),
-        "modified_label": (rng.rand(GLOBAL_B, *SPATIAL) > 0.8).astype(np.int32),
+        "image": rng.randn(GLOBAL_B, *spatial).astype(np.float32),
+        "label": (rng.rand(GLOBAL_B, *spatial) > 0.8).astype(np.int32),
+        "modified_label": (rng.rand(GLOBAL_B, *spatial) > 0.8).astype(np.int32),
         "dataset_idx": np.arange(GLOBAL_B, dtype=np.int32),
     }
+
+
+def case_fields(case: str) -> dict:
+    """A step case's TrainConfig fields, "augment" and "dropout" included."""
+    return dict(STEP_CASES[case] if case in STEP_CASES else SPACE_STEP_CASES[case][0])
 
 
 def start_state(case: str):
@@ -164,15 +224,18 @@ def start_state(case: str):
     from deep_staple_torch.train.driver import make_model
     from deep_staple_torch.train.state import create_state
 
-    kw = dict(STEP_CASES[case])
-    kw.pop("augment", None)
+    kw = case_fields(case)
+    for k in ("augment", "lr"):
+        kw.pop(k, None)
     dropout = kw.pop("dropout", None)
-    cfg = TrainConfig(**kw)
+    cfg = (TrainConfig.tpu_production if kw.pop("preset", None) else TrainConfig)(**kw)
     model, _ = make_model(cfg, 2)
     if dropout is not None:
         model.aspp.dropout_rate = dropout
     state = create_state(model, DATASET_LEN, seed=0, device="cpu")
     warm_adamw(state.optimizer)
+    if case in SPACE_STEP_CASES:
+        warm_sparse_adam(state)
     return cfg, model, state
 
 
@@ -187,6 +250,16 @@ def warm_adamw(optimizer):
         for p in group["params"]:
             optimizer.state[p] = {"step": torch.tensor(10.0), "exp_avg": torch.zeros_like(p),
                                   "exp_avg_sq": torch.full_like(p, 1e-4)}
+
+
+def warm_sparse_adam(state):
+    """The DP vector's SparseAdam as after 10 steps with second moments of
+    1e-4 (`chip_smoke._warm`)."""
+    import torch
+
+    o = state.dp_opt_state
+    state.dp_opt_state = o._replace(nu=torch.full_like(o.nu, 1e-4),
+                                    count=torch.full_like(o.count, 10))
 
 
 def forward_model():
@@ -327,9 +400,7 @@ def warm_create_state(monkeypatch=None):
     def warm(*a, **k):
         state = create_state(*a, **k)
         warm_adamw(state.optimizer)
-        o = state.dp_opt_state
-        state.dp_opt_state = o._replace(nu=torch.full_like(o.nu, 1e-4),
-                                        count=torch.full_like(o.count, 10))
+        warm_sparse_adam(state)
         return state
 
     if monkeypatch is None:
@@ -339,7 +410,7 @@ def warm_create_state(monkeypatch=None):
 
 
 def run_step_case(case: str, data=None, steps: int = STEPS, perm=None, tp=None,
-                  ckpt_dir=None) -> dict:
+                  ckpt_dir=None, space=None) -> dict:
     """`steps` steps of a case on this rank's rows (all rows without
     `data`); -> the first step's metrics, and the state after the last.
     `perm` (one rank) permutes the batch's rows and their augmentation
@@ -347,7 +418,10 @@ def run_step_case(case: str, data=None, steps: int = STEPS, perm=None, tp=None,
     `parallel.mesh.ModelGroup`) shards the model and AdamW's moments over
     it; the state is then this rank's shards, and with `ckpt_dir` the state
     after the last step is gathered and rank 0 writes it there as the
-    port's checkpoint (`pt/state.pt`) and as JAX's (`msgpack/state.msgpack`)."""
+    port's checkpoint (`pt/state.pt`) and as JAX's (`msgpack/state.msgpack`).
+    `space` (a `parallel.mesh.SpaceGroup`) shards the 3D model's H axis over
+    it. A case of SPACE_STEP_CASES runs at SPACE_LR with both optimizers
+    warm, the 2D model on slices of the batch's volumes."""
     import torch
 
     from deep_staple_torch.parallel.mesh import shard_batch
@@ -358,8 +432,10 @@ def run_step_case(case: str, data=None, steps: int = STEPS, perm=None, tp=None,
     shard_train_state(state, tp)
     step = make_train_step(model, cfg, np.array([0.5, 1.5], np.float32),
                            np.full((DATASET_LEN,), 5.0, np.float32),
-                           augment=STEP_CASES[case].get("augment", True), data=data)
-    batch = {k: torch.from_numpy(v) for k, v in shard_batch(step_batch(), data).items()}
+                           augment=case_fields(case).get("augment", True), data=data, space=space)
+    spatial = SPATIAL[1:] if cfg.use_2d_normal_to is not None else SPATIAL
+    batch = {k: torch.from_numpy(v) for k, v in shard_batch(step_batch(spatial), data).items()}
+    lr = case_fields(case).get("lr", SPACE_LR if case in SPACE_STEP_CASES else 0.01)
     gen = torch.Generator().manual_seed(0)
     draws = None
     if perm is not None:
@@ -367,10 +443,10 @@ def run_step_case(case: str, data=None, steps: int = STEPS, perm=None, tp=None,
 
         idx = torch.as_tensor(perm)
         batch = {k: v[idx] for k, v in batch.items()}
-        draws = AugmentDraws(*(d[idx] for d in draw_augment(gen, (GLOBAL_B,) + SPATIAL)))
+        draws = AugmentDraws(*(d[idx] for d in draw_augment(gen, (GLOBAL_B,) + spatial)))
     out = {}
     for k in range(steps):
-        state, metrics = step(state, batch, 0.01, generator=gen, draws=draws)
+        state, metrics = step(state, batch, lr, generator=gen, draws=draws)
         draws = None
         if k == 0:
             out.update({f"m_{n}": v.numpy() for n, v in metrics.items()})
@@ -425,13 +501,17 @@ def main(argv):
         }))
         return
     mode, rank, world, store, out_dir = argv[:5]
-    if mode not in ("step", "tp", "space"):
+    if mode not in ("step", "tp", "space", "space_train"):
         raise SystemExit(f"unknown mode {mode!r}")
     from deep_staple_torch.parallel.multihost import init_distributed
 
     data = init_distributed(int(world), int(rank), f"file://{store}", device="cpu", timeout_s=120)
     if mode == "space":
         space_forwards(int(rank), int(world), Path(out_dir))
+        torch.distributed.destroy_process_group()
+        return
+    if mode == "space_train":
+        space_train(int(rank), Path(out_dir), argv[5].split(","))
         torch.distributed.destroy_process_group()
         return
     if mode == "tp":
@@ -483,6 +563,149 @@ def space_forwards(rank: int, world: int, out_dir: Path):
     if rank < 3:
         np.savez(out_dir / f"rows_rank{rank}.npz", **space_rows(SpaceGroup(rank, 3, groups[3], "gloo")))
     dist.barrier()
+
+
+def _adj_weights(tag: str, r: int, shape):
+    """Rank r's weights of the exchange `tag`'s output in the loss."""
+    import zlib
+
+    import torch
+
+    rng = np.random.RandomState(zlib.crc32(f"{tag}/{r}".encode()))
+    return torch.from_numpy(rng.randn(*shape))
+
+
+def adjoint_input(S: int) -> np.ndarray:
+    return np.random.RandomState(S).randn(2, 3, ADJ_H[S], 4, 5)
+
+
+def _adjoint_outputs(x, S: int, r: int, group=None):
+    """(tag, output) of every exchange for rank r of S: on the slab x with
+    `group`, else the same rows of the unsharded operation on the whole x
+    (a resize by a ratio that is no power of two interpolates H row by row
+    with float32 weights, sharded or not: `resize_h` on one rank)."""
+    from deep_staple_torch.parallel.mesh import SpaceGroup
+    from deep_staple_torch.parallel.spatial import (
+        SlabAxis, even_bounds, halo_rows, resize_h, space_mean,
+    )
+
+    H = ADJ_H[S]
+    b = even_bounds(H, S)
+    ax = None if group is None else SlabAxis(group, b)
+    for lo, hi in ADJ_HALOS:
+        if ax is not None:
+            yield f"halo_{lo}_{hi}", halo_rows(x, lo, hi, ax)
+        else:
+            g0, g1 = b[r] - lo, b[r + 1] + hi
+            yield f"halo_{lo}_{hi}", _pad_rows(x[:, :, max(g0, 0):min(g1, H)], max(0, -g0),
+                                               max(0, g1 - H))
+    yield "mean", space_mean(x, ax)
+    for n_out in ADJ_RESIZES[S]:
+        bo = even_bounds(n_out, S)
+        if ax is not None:
+            yield f"resize_{n_out}", resize_h(x, ax, SlabAxis(group, bo), (5, 3))
+        else:  # a group of one rank: the same arithmetic on the whole axis
+            one = SpaceGroup(0, 1)
+            yield f"resize_{n_out}", resize_h(x, SlabAxis(one, (0, H)), SlabAxis(one, (0, n_out)),
+                                              (5, 3))[:, :, bo[r]:bo[r + 1]]
+
+
+def _pad_rows(rows, below: int, above: int):
+    import torch
+
+    z = rows.new_zeros
+    shape = list(rows.shape)
+    return torch.cat([z(shape[:2] + [below] + shape[3:]), rows,
+                      z(shape[:2] + [above] + shape[3:])], dim=2)
+
+
+def space_adjoints(group) -> dict:
+    """The gradient of this rank's share of the loss (every exchange's
+    output weighted by `_adj_weights`) w.r.t. its slab, in float64, one
+    backward an exchange -> {tag: gradient rows}."""
+    import torch
+
+    from deep_staple_torch.parallel.spatial import even_bounds
+
+    S, r = group.size, group.rank
+    b = even_bounds(ADJ_H[S], S)
+    x = torch.from_numpy(adjoint_input(S))[:, :, b[r]:b[r + 1]].clone().requires_grad_(True)
+    out = {}
+    for tag, y in _adjoint_outputs(x, S, r, group):
+        (g,) = torch.autograd.grad((y * _adj_weights(tag, r, y.shape)).sum(), x)
+        out[tag] = g.numpy()
+    return out
+
+
+def adjoint_reference(S: int) -> dict:
+    """The unsharded counterpart of `space_adjoints`: the gradient of the
+    sum of every rank's share w.r.t. the whole tensor -> {tag: gradient}."""
+    import torch
+
+    x = torch.from_numpy(adjoint_input(S)).requires_grad_(True)
+    losses = {}
+    for r in range(S):
+        for tag, y in _adjoint_outputs(x, S, r):
+            losses[tag] = losses.get(tag, 0) + (y * _adj_weights(tag, r, y.shape)).sum()
+    return {tag: torch.autograd.grad(v, x)[0].numpy() for tag, v in losses.items()}
+
+
+def space_model_grads(case: str, group=None) -> dict:
+    """The float64 3D model of GRAD_CASES[case] (`forward_model`'s weights),
+    a train-mode forward on GRAD_INPUT with dropout, this rank's share of
+    the loss <W, logits> (its slab's rows with a space group) -> the
+    parameters' gradients ("g_<name>") and the buffers after the forward."""
+    import torch
+
+    from deep_staple_torch.models.lraspp3d import MobileNetLRASPP3D, attach_space_group
+    from deep_staple_torch.parallel.spatial import slab_axes
+
+    model = _random_bn(MobileNetLRASPP3D(num_classes=2, **GRAD_CASES[case])).double()
+    attach_space_group(model, group)
+    rng = np.random.RandomState(4)
+    x = torch.from_numpy(rng.randn(*GRAD_INPUT))
+    w = torch.from_numpy(rng.randn(*GRAD_INPUT[:4], 2))
+    if group is not None:
+        a = slab_axes(GRAD_INPUT[2], group)[0]
+        w = w[:, :, a.start:a.stop]
+    y = model(x, train=True, generator=torch.Generator().manual_seed(5))["out"]
+    params = dict(model.named_parameters())
+    grads = torch.autograd.grad((y * w).sum(), list(params.values()))
+    out = {f"g_{n}": g.numpy() for n, g in zip(params, grads)}
+    out.update({f"b_{n}": b.numpy() for n, b in model.named_buffers()})
+    return out
+
+
+def space_train(rank: int, out_dir: Path, cases):
+    """The cases named, in this order on every rank: "adjoints" on space
+    groups of ranks 0 .. S-1 for each S of ADJ_H (`adj<S>_rank<r>.npz`),
+    "grads" on ranks 0-3 (`grads-<case>_rank<r>.npz`), then each
+    SPACE_STEP_CASES case on its grid of the 8 ranks (`<case>_rank<r>.npz`,
+    as `run_step_case` writes it)."""
+    import torch.distributed as dist
+
+    from deep_staple_torch.parallel.mesh import SpaceGroup, batch_group, make_grid
+
+    groups = {S: dist.new_group(list(range(S))) for S in ADJ_H}
+    if "adjoints" in cases:
+        for S in ADJ_H:
+            if rank < S:
+                np.savez(out_dir / f"adj{S}_rank{rank}.npz",
+                         **space_adjoints(SpaceGroup(rank, S, groups[S], "gloo")))
+    if "grads" in cases and rank < 4:
+        for case in GRAD_CASES:
+            np.savez(out_dir / f"grads-{case}_rank{rank}.npz",
+                     **space_model_grads(case, SpaceGroup(rank, 4, groups[4], "gloo")))
+    dist.barrier()
+    for case in cases:
+        if case not in SPACE_STEP_CASES:
+            continue
+        fields, (D, S, M) = SPACE_STEP_CASES[case]
+        data, tp, space = make_grid("cpu", M, S)
+        if fields.get("use_2d_normal_to") is not None:
+            data, space = batch_group("cpu", M), None
+        np.savez(out_dir / f"{case}_rank{rank}.npz",
+                 **run_step_case(case, data, tp=tp, space=space))
 
 
 if __name__ == "__main__":
