@@ -6,7 +6,7 @@
     phases: device, build, kernels, train_kernels, consensus_kernels, serve,
             e2e, profile, train, train_e2e, train_profile, consensus,
             train_dl, pipeline, side_paths, oracle, registration, jax_checkpoint,
-            doctor, dataset_tools, parallel, times (default: all)
+            orbax, doctor, dataset_tools, parallel, times (default: all)
 
 Run from the repository root. It builds every kernel of the port from the
 sources in the checkout (one nvcc per source, all at once), holds each
@@ -85,7 +85,12 @@ give it, and drives both main paths at full size:
     scales and iterations, held to `tests/test_register.py`'s bound and
     timed; card against CPU at 64x64x25 (the first scale's loss and
     gradient, the final map), `ssd_cost_volume` at its defaults on 12 MIND
-    channels and 1,024 keypoints, and `dilate_label_class`.
+    channels and 1,024 keypoints, and `dilate_label_class`;
+  * JAX's orbax checkpoints: two production steps of `train_dl` with
+    checkpoint_backend 'orbax' write `state.orbax`; `train_dl` resumes and
+    `serve.main` serves from it as from the same state's `state.pt` (states
+    bitwise equal, label maps byte-equal); the production state's
+    `write_orbax` and `read_orbax` timed.
 
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after. It times each kernel beside its bound, its plain
@@ -117,8 +122,8 @@ REPO = Path(__file__).resolve().parent
 WORK = REPO / "build" / "chip_smoke"
 PHASES = ("device", "build", "kernels", "train_kernels", "consensus_kernels", "serve", "e2e",
           "profile", "train", "train_e2e", "train_profile", "consensus", "train_dl", "pipeline",
-          "side_paths", "oracle", "registration", "jax_checkpoint", "doctor", "dataset_tools",
-          "parallel", "times")
+          "side_paths", "oracle", "registration", "jax_checkpoint", "orbax", "doctor",
+          "dataset_tools", "parallel", "times")
 
 # The depthwise conv's shapes at the serve CLI's defaults: size 128^3 with
 # crop (45, 95) gives 128x128x50, eval x2.0 gives 256x256x100 at the input,
@@ -310,6 +315,8 @@ PATH_KERNELS = {
                       "staple_em_iter"),
     "jax_checkpoint": ("depthwise_conv3d_fwd", "depthwise_conv3d_grad_x",
                        "depthwise_conv3d_grad_w", "sep_warp_pass"),
+    "orbax": ("depthwise_conv3d_fwd", "depthwise_conv3d_grad_x", "depthwise_conv3d_grad_w",
+              "sep_warp_pass"),
     "dataset_tools": (),  # the registration estimate: PyTorch ops, no kernel of the port
     **{f"parallel_{path}_rank{r}": kernels for r in range(2) for path, kernels in (
         ("step", ("depthwise_conv3d_fwd", "depthwise_conv3d_grad_x", "depthwise_conv3d_grad_w",
@@ -3008,6 +3015,142 @@ def phase_jax_checkpoint(rec, seed):
         raise AssertionError(f"jax_checkpoint: {failures}")
 
 
+def _tree_bitwise_diff(got, want, path="") -> list:
+    """Paths where two JAX-form state trees differ in keys, dtype, shape or bits."""
+    import torch
+
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or sorted(got) != sorted(want):
+            return [path or "/"]
+        return [d for k in want for d in _tree_bitwise_diff(got[k], want[k], f"{path}/{k}")]
+    if want is None or got is None:
+        return [] if got is want else [path]
+    if isinstance(want, torch.Tensor):
+        if not isinstance(got, torch.Tensor) or got.dtype != want.dtype:
+            return [path]
+        got, want = got.view(torch.int16).numpy(), want.view(torch.int16).numpy()
+    got, want = np.asarray(got), np.asarray(want)
+    same = got.dtype == want.dtype and got.shape == want.shape and got.tobytes() == want.tobytes()
+    return [] if same else [path]
+
+
+def phase_orbax(rec, seed):
+    """The JAX package's orbax checkpoint written and read by the port on
+    the card's machine, which has no orbax, tensorstore or zstandard
+    (`train/orbax_io.py`, `ocdbt.py`, `zarr2.py`, `zstd.py`). Two production
+    steps of `train_dl` with checkpoint_backend 'orbax' on the
+    JAX-checkpoint phase's fixture write `state.orbax`; the same state goes
+    to a `state.pt` directory. `train_dl` with auto_resume from each: the
+    resumed states bit for bit equal (the run has no epoch left, so each
+    returns its restored state). `serve.main` from each: label maps
+    byte-equal. Then the production state's `write_orbax` and `read_orbax`
+    (a host-side copy of 1,228,932 parameters with AdamW's moments), their
+    times and the directory's bytes on `[times]` lines beside the card's
+    name and power limit."""
+    import json as _json
+    import tempfile
+
+    from deep_staple_torch import serve as serve_mod
+    from deep_staple_torch.data.nifti import load_nifti
+    from deep_staple_torch.data.synthetic import generate_synthetic_crossmoda
+    from deep_staple_torch.models.interop import state_to_jax
+    from deep_staple_torch.train import driver
+    from deep_staple_torch.train.checkpoint import save_checkpoint
+    from deep_staple_torch.train.orbax_io import read_orbax, write_orbax
+    from deep_staple_torch.train.prepare import prepare_data
+
+    out = rec["orbax"] = {}
+    failures = []
+    dev_kw, dev_argv = _no_device()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="orbax_") as tmp:
+        root = Path(tmp)
+        generate_synthetic_crossmoda(root / "ds", num_cases=JAX_CKPT_CASES,
+                                     atlas_count=JAX_CKPT_ATLASES, bad_atlases_per_case=1,
+                                     size=TRAIN_DL_SIZE, seed=seed)
+        cfg = _dl_config(root / "ds", epochs=1, batch_size=8, num_val_images=1,
+                         save_labels=False, log_jsonl=False, checkpoint_backend="orbax",
+                         output_dir=str(root / "out"), mdl_save_prefix=str(root / "orbax"))
+        dataset, atlas_count = prepare_data(cfg)
+        reset_counts()
+        t = _sync()
+        state = driver.train_dl("ob", cfg, dataset, atlas_count, device=DEV)[0]["state"]
+        out["train_s"] = _sync() - t
+        counts = read_counts()
+        _record_path(rec, "orbax", counts)
+        dirs = {"orbax": root / "orbax" / "ob_fold0_epx0", "pt": root / "pt" / "ob_fold0_epx0"}
+        files = sorted(q.name for q in dirs["orbax"].iterdir())
+        if files != ["config.json", "state.orbax"] or state.step != 2:
+            failures.append(f"train_dl wrote {files} after {state.step} steps")
+        # Both directories serve with the serve phase's crop.
+        serve_cfg = cfg.replace(crop_3d_w_dim_range=SERVE_CROP)
+        save_checkpoint(dirs["pt"], state, serve_cfg)
+        (dirs["orbax"] / "config.json").write_text(
+            _json.dumps(serve_cfg.to_dict(), indent=2, default=str))
+
+        resumed = {}
+        for k, d in dirs.items():
+            rcfg = cfg.replace(auto_resume=True, mdl_save_prefix=str(d.parent),
+                               output_dir=str(root / f"out_{k}"))
+            t = _sync()
+            r = driver.train_dl("ob", rcfg, dataset, atlas_count, device=DEV)[0]
+            resumed[k] = (r["state"], _sync() - t,
+                          [h["ref_epoch_idx"] for h in r["writer"].history
+                           if "ref_epoch_idx" in h])
+        bad = _states_equal(resumed["orbax"][0], resumed["pt"][0]) + \
+            _states_equal(resumed["pt"][0], state)
+        out["resume_s"] = {k: v[1] for k, v in resumed.items()}
+        out["resumed_states_equal"] = not bad
+        if bad or resumed["orbax"][2] or resumed["pt"][2]:
+            failures.append(f"resume: states differ in {bad[:5]}, epochs run "
+                            f"{resumed['orbax'][2]} / {resumed['pt'][2]}")
+        log(f"[orbax] train_dl, 2 production steps, checkpoint_backend 'orbax': "
+            f"{out['train_s']:.1f} s, wrote {files}; auto_resume from state.orbax "
+            f"{out['resume_s']['orbax']:.2f} s, from state.pt {out['resume_s']['pt']:.2f} s; "
+            f"resumed states {'bitwise equal' if not bad else 'DIFFER'}; launches {counts}")
+
+        inputs = _serve_inputs(root, seed, n=4)
+        size_argv = ["--size", *map(str, SERVE_SIZE)]
+        served = {}
+        for k, d in dirs.items():
+            t = _sync()
+            r = serve_mod.main(["--checkpoint", str(d), "--inputs", *inputs, "--output-dir",
+                                str(root / f"served_{k}"), *size_argv, *dev_argv])
+            served[k] = (r, _sync() - t)
+        same_maps = len(served["orbax"][0].paths) == 4 and all(
+            load_nifti(a).data.tobytes() == load_nifti(b).data.tobytes()
+            for a, b in zip(served["orbax"][0].paths, served["pt"][0].paths))
+        out["serve_s"] = {k: v[1] for k, v in served.items()}
+        out["label_maps_byte_equal"] = same_maps
+        if not same_maps:
+            failures.append("served label maps differ")
+        log(f"[orbax] serve.main, no --device, 4 volumes at {SERVE_SIZE}: "
+            f"{served['orbax'][1]:.2f} s from state.orbax, {served['pt'][1]:.2f} s from "
+            f"state.pt; label maps {'byte-equal' if same_maps else 'DIFFER'}")
+
+        tree = state_to_jax(state)
+        t = time.perf_counter()
+        write_orbax(root / "prod" / "state.orbax", tree)
+        write_s = time.perf_counter() - t
+        size = sum(f.stat().st_size for f in (root / "prod").rglob("*") if f.is_file())
+        t = time.perf_counter()
+        back = read_orbax(root / "prod" / "state.orbax")
+        read_s = time.perf_counter() - t
+        diff = _tree_bitwise_diff(back, tree)
+        if diff:
+            failures.append(f"read_orbax differs from the tree written in {diff[:5]}")
+        out.update(write_orbax_s=write_s, read_orbax_s=read_s, bytes=size, round_trip=not diff)
+        card = rec["nvidia_smi"]
+        log(f"[times] {'write_orbax':24s} production state, {size:,} B in "
+            f"{sum(1 for _ in (root / 'prod').rglob('*'))} files: {write_s * 1e3:.1f} ms | {card}")
+        log(f"[times] {'read_orbax':24s} production state, {size:,} B: {read_s * 1e3:.1f} ms, "
+            f"round trip {'bitwise' if not diff else 'DIFFERS'} | {card}")
+    out["s"] = time.perf_counter() - t0
+    log(f"[orbax] {out['s']:.1f} s in all")
+    if failures:
+        raise AssertionError(f"orbax: {failures}")
+
+
 def phase_doctor(rec):
     """`python3 -m deep_staple_torch.doctor` in a subprocess: rc 0 and "all
     checks passed" (the card, nvcc and the three kernels built)."""
@@ -4560,6 +4703,9 @@ def main(argv=None):
     if "jax_checkpoint" in phases:
         phase_jax_checkpoint(rec, args.seed)
         mark("jax_checkpoint")
+    if "orbax" in phases:
+        phase_orbax(rec, args.seed)
+        mark("orbax")
     if "doctor" in phases:
         phase_doctor(rec)
         mark("doctor")

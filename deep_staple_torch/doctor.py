@@ -21,14 +21,19 @@ Checks:
      started in a subprocess, all-reduce a tensor and check the sum, which
      is what the port's data parallelism (`parallel/`) needs of
      `torch.distributed`;
-  6. optional: the native C++ NIfTI library (`data/native_io.py`) and
+  6. the JAX checkpoint reader and writer, in place of the JAX doctor's
+     orbax import (`deep_staple_tpu/doctor.py:96-100`): a small tree
+     through `train/orbax_io.write_orbax` and `read_orbax`, and one zstd
+     frame (Huffman literals, FSE sequences, a content checksum) through
+     `train/zstd.decompress`;
+  7. optional: the native C++ NIfTI library (`data/native_io.py`) and
      matplotlib / PIL (the figures); these only warn.
 
 The JAX doctor's compile-cache check has no counterpart (nvcc's libraries in
 `build/kernels/` play that part, `core/cache.py` is not ported by design).
 
-Exit code 0 only when the versions, the card, nvcc, the kernel build and
-the mesh probe all pass. Without a card it exits 1 and says that only the `--device cpu` paths
+Exit code 0 only when the versions, the card, nvcc, the kernel build, the
+mesh probe and the checkpoint check all pass. Without a card it exits 1 and says that only the `--device cpu` paths
 are usable: the port's entry points raise without CUDA (`core/device.py`).
 """
 
@@ -196,6 +201,42 @@ def check_mesh(timeout: int) -> bool:
     return _report("2-rank gloo process group", OK, _tagged(out, "MESH"))
 
 
+# zstd level 19 of _ZSTD_TEXT, with its content checksum.
+_ZSTD_FRAME = bytes.fromhex(
+    "28b52ffd64a700c5030032481a1960770e50b1e728cb6a1b23ec1ef55cf2ff282c088c41"
+    "90c20317283bc9d8c5f4489350db5c2375b9551461ca618d59b51dfd55babd23c3fa27f7"
+    "74921874efdeed01e537e59de230980fb4ca38adc93174d716ea790ab0b4935beb0fb19c"
+    "613d7dcbfddad33a432703001710a32aa8f082c6525193d9e7d1")
+_ZSTD_TEXT = ("The port reads the JAX package's orbax checkpoints: OCDBT nodes, zarr chunks and "
+              "their zstd frames, with Huffman literals and FSE sequences. ") * 3
+
+
+def check_orbax() -> bool:
+    import numpy as np
+    import torch
+
+    from .train import zstd
+    from .train.orbax_io import read_orbax, write_orbax
+
+    name = "orbax reader / writer, zstd"
+    tree = {"step": np.array(3, np.int32), "params": {"w": np.arange(6, dtype=np.float32)},
+            "bf16": torch.ones(2, 3, dtype=torch.bfloat16), "opt": {"0": {}, "1": {}},
+            "dp_params": None}
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            write_orbax(Path(d) / "state.orbax", tree)
+            back = read_orbax(Path(d) / "state.orbax")
+        ok = (int(back["step"]) == 3 and back["params"]["w"].tolist() == list(range(6))
+              and torch.equal(back["bf16"], tree["bf16"]) and back["opt"] == {"0": {}, "1": {}}
+              and back["dp_params"] is None)
+        ok &= zstd.decompress(_ZSTD_FRAME) == _ZSTD_TEXT.encode()
+    except (OSError, ValueError) as e:
+        return _report(name, FAIL, repr(e))
+    if not ok:
+        return _report(name, FAIL, "round trip or frame decode differs")
+    return _report(name, OK, f"round trip; a {len(_ZSTD_FRAME)}-byte frame decoded")
+
+
 def check_native() -> bool:
     from .data import native_io
 
@@ -241,6 +282,7 @@ def main(argv=None) -> int:
     nvcc = check_nvcc(args.timeout)
     build = check_kernel_build(args.timeout)
     mesh = check_mesh(args.timeout)
+    good &= check_orbax()
     check_native()
     check_figures()
     if not card:

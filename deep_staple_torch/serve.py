@@ -4,8 +4,8 @@
     --output-dir out/ [--device cpu]`
 
 The port of `deep_staple_tpu/serve.py`: load a checkpoint once (`config.json`
-with the port's `state.pt` or the JAX package's `state.msgpack`,
-`train/checkpoint.py`), preprocess each NIfTI volume like the
+with the port's `state.pt` or the JAX package's `state.orbax` or
+`state.msgpack`, `train/checkpoint.py`), preprocess each NIfTI volume like the
 CrossMoDa training pipeline (resample -> pad -> W-crop -> z-normalise), run
 the eval forward at the reference's x2.0 eval scale, take the argmax, and
 write each label map back onto its input's voxel grid (nearest resize, the
@@ -69,7 +69,8 @@ def load_serving_state(checkpoint_dir, device=None):
     The DP-vector length comes from the checkpoint itself, so a checkpoint
     restores without its dataset; the vector is None for a JAX run without
     data parameters. A directory of the JAX package is read as its
-    `load_serving_state` reads it (`deep_staple_tpu/serve.py:49-70`).
+    `load_serving_state` reads it (`deep_staple_tpu/serve.py:49-70`):
+    `state.orbax` before `state.msgpack`.
     """
     device = resolve_device(device)
     config = load_config(checkpoint_dir)
@@ -248,7 +249,8 @@ def _make_output_writer(output_dir, config, size, eval_scale, output_space):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--checkpoint", required=True,
-                    help="directory with config.json and state.pt or JAX's state.msgpack")
+                    help="directory with config.json and state.pt, or JAX's state.orbax or "
+                         "state.msgpack")
     ap.add_argument("--inputs", nargs="+", required=True, help="input NIfTI volumes")
     ap.add_argument("--output-dir", required=True)
     ap.add_argument("--batch-size", type=int, default=4)

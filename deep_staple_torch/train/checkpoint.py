@@ -15,19 +15,26 @@ the training driver. `save_weights` writes the model and the DP vector alone,
 and `restore_weights` reads them from either kind of file: the serving path
 needs no optimizer.
 
-The JAX package's `state.msgpack` (`deep_staple_tpu/train/checkpoint.py`,
-flax's msgpack form of its `DeepStapleState`) is read too, by the port's own
-decoder (`train/flax_msgpack.py`; no `msgpack` package) and
-`models/interop.state_from_jax`; `save_jax_checkpoint` writes one. Where a
-directory holds both, the port's `state.pt` wins. JAX's `state.orbax` (an
-orbax / tensorstore directory, which JAX prefers over its msgpack) is not
-read: restoring from a directory whose newest JAX state is orbax raises
-`NotImplementedError`.
+The JAX package's checkpoints (`deep_staple_tpu/train/checkpoint.py`) are
+read too, through `models/interop.state_from_jax`: `state.orbax`, orbax's
+directory of its `DeepStapleState` (`train/orbax_io.py`; no orbax or
+tensorstore), before `state.msgpack`, flax's msgpack form of it
+(`train/flax_msgpack.py`; no `msgpack` package), as JAX restores them.
+Where a directory holds the port's `state.pt` too, `state.pt` wins.
+`save_jax_checkpoint` writes a `state.msgpack`; `save_checkpoint` with
+backend 'orbax' writes a `state.orbax` (uncompressed) that the JAX package
+restores, and the 'msgpack' and 'torch' backends write `state.pt`. Each
+save removes, once its own file has landed, the files that would shadow it
+for one package or the other: an orbax save the directory's `state.pt` and
+`state.msgpack`, a `state.pt` save its `state.orbax` (JAX's rules,
+`deep_staple_tpu/train/checkpoint.py:60-66, 89-98`, under the port's
+precedence).
 """
 
 from __future__ import annotations
 
 import json
+import shutil
 from pathlib import Path
 
 import numpy as np
@@ -36,18 +43,15 @@ import torch
 from ..core.config import TrainConfig
 from .flax_msgpack import msgpack_restore, to_bytes
 from .optim import SparseAdamState
+from .orbax_io import read_orbax, write_orbax
 from .state import DeepStapleState
 
-# The JAX package's default backend name; the port writes its own state.pt
-# for it.
-BACKENDS = ("msgpack", "torch")
+# 'msgpack', the JAX package's default name, and 'torch' write the port's
+# state.pt; 'orbax' writes JAX's state.orbax.
+BACKENDS = ("msgpack", "torch", "orbax")
 
 
 def check_backend(backend: str):
-    if backend == "orbax":
-        raise NotImplementedError(
-            "checkpoint_backend 'orbax' is the JAX package's format; the port writes its "
-            "own single-file format, state.pt (checkpoint_backend 'msgpack' or 'torch')")
     if backend not in BACKENDS:
         raise ValueError(f"unknown checkpoint backend {backend!r}")
 
@@ -56,14 +60,35 @@ def _host(t):
     return t.detach().cpu().clone()
 
 
+def _write_config(path: Path, config: TrainConfig | None):
+    if config is not None:
+        (path / "config.json").write_text(json.dumps(config.to_dict(), indent=2, default=str))
+
+
 def _write(path, state: dict, config: TrainConfig | None):
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
     tmp = path / "state.pt.tmp"
     torch.save(state, tmp)
     tmp.replace(path / "state.pt")
-    if config is not None:
-        (path / "config.json").write_text(json.dumps(config.to_dict(), indent=2, default=str))
+    _write_config(path, config)
+
+
+def _write_orbax(path: Path, state: DeepStapleState, config: TrainConfig | None):
+    """`state` as JAX's `state.orbax`, written beside and moved in place once
+    complete; then the port's `state.pt` and JAX's `state.msgpack`, which
+    would shadow it, go."""
+    from ..models.interop import state_to_jax
+
+    path.mkdir(parents=True, exist_ok=True)
+    tmp = path / "state.orbax.tmp"
+    write_orbax(tmp, state_to_jax(state))
+    if (path / "state.orbax").exists():
+        shutil.rmtree(path / "state.orbax")
+    tmp.replace(path / "state.orbax")
+    (path / "state.pt").unlink(missing_ok=True)
+    (path / "state.msgpack").unlink(missing_ok=True)
+    _write_config(path, config)
 
 
 def _dp_vector(dp_params) -> torch.Tensor:
@@ -82,8 +107,12 @@ def _optimizer_to_host(sd: dict) -> dict:
 
 def save_checkpoint(path, state: DeepStapleState, config: TrainConfig | None = None,
                     backend: str = "msgpack"):
-    """Write the whole train state to `path`/state.pt (and config.json)."""
+    """Write the whole train state to `path`/state.pt, or with backend
+    'orbax' to `path`/state.orbax (and config.json)."""
     check_backend(backend)
+    if backend == "orbax":
+        _write_orbax(Path(path), state, config)
+        return
     out = {
         "model": {k: _host(v) for k, v in state.model.state_dict().items()},
         "optimizer": _optimizer_to_host(state.optimizer.state_dict()),
@@ -97,25 +126,25 @@ def save_checkpoint(path, state: DeepStapleState, config: TrainConfig | None = N
         o = state.dp_opt_state
         out["dp_opt_state"] = {"mu": _host(o.mu), "nu": _host(o.nu), "count": _host(o.count)}
     _write(path, out, config)
+    if (Path(path) / "state.orbax").exists():
+        shutil.rmtree(Path(path) / "state.orbax")
 
 
 def _jax_state_dict(path):
-    """The JAX checkpoint's state dict, or None where `path` has `state.pt`.
-    Raises for an orbax state that the JAX package would restore."""
+    """The JAX checkpoint's state dict, or None where `path` has `state.pt`:
+    `state.orbax` before `state.msgpack`, as JAX restores
+    (`deep_staple_tpu/train/checkpoint.py:105-113`)."""
     path = Path(path)
     if (path / "state.pt").is_file():
         return None
-    if (path / "state.orbax").exists():
-        raise NotImplementedError(
-            f"{path / 'state.orbax'}: the JAX package's orbax checkpoints are not read by the "
-            "port, which does not depend on orbax or tensorstore; the JAX package reads it, "
-            "or writes state.msgpack with checkpoint_backend 'msgpack'")
+    if (path / "state.orbax").is_dir():
+        return read_orbax(path / "state.orbax")
     return msgpack_restore((path / "state.msgpack").read_bytes())
 
 
 def restore_checkpoint(path, template_state: DeepStapleState) -> DeepStapleState:
-    """Load a `save_checkpoint` file, or the JAX package's `state.msgpack`,
-    into `template_state` (its model and optimizer are loaded in place, on
+    """Load a `save_checkpoint` file, or the JAX package's `state.orbax` or
+    `state.msgpack`, into `template_state` (its model and optimizer are loaded in place, on
     their device) and return the restored state."""
     jax_tree = _jax_state_dict(path)
     if jax_tree is not None:
@@ -150,15 +179,6 @@ def checkpoint_exists(path) -> bool:
             or (path / "state.orbax").is_dir())
 
 
-def jax_checkpoint_only(path) -> bool:
-    """True when `path` holds the JAX package's checkpoint (`state.msgpack`
-    or `state.orbax`, `deep_staple_tpu/train/checkpoint.py:116-117`) and no
-    `state.pt`."""
-    path = Path(path)
-    return not (path / "state.pt").is_file() and (
-        (path / "state.msgpack").is_file() or (path / "state.orbax").exists())
-
-
 def save_weights(path, model: torch.nn.Module, dp_params, config: TrainConfig | None = None):
     """Write the model's state_dict and the DP vector only (a serving checkpoint)."""
     _write(path, {"model": {k: _host(v) for k, v in model.state_dict().items()},
@@ -180,15 +200,16 @@ def save_jax_checkpoint(path, state: DeepStapleState, config: TrainConfig | None
     tmp = path / "state.msgpack.tmp"
     tmp.write_bytes(to_bytes(state_to_jax(state)))
     tmp.replace(path / "state.msgpack")
-    if config is not None:
-        (path / "config.json").write_text(json.dumps(config.to_dict(), indent=2, default=str))
+    if (path / "state.orbax").exists():  # JAX restores it before state.msgpack
+        shutil.rmtree(path / "state.orbax")
+    _write_config(path, config)
 
 
 def restore_weights(path, model: torch.nn.Module) -> torch.Tensor | None:
     """Load the weights into `model` (strict) and return the DP vector, whose
     length is read from the file, as `deep_staple_tpu/serve.py:70` does;
-    from `state.pt` or the JAX package's `state.msgpack` (None where that run
-    had no data parameters)."""
+    from `state.pt` or the JAX package's `state.orbax` or `state.msgpack`
+    (None where that run had no data parameters)."""
     jax_tree = _jax_state_dict(path)
     if jax_tree is not None:
         from ..models.interop import load_flax_variables

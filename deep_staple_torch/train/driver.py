@@ -83,7 +83,9 @@ a checkpoint needs no gather there. The 2D model's slices are independent:
 its D x S ranks form one data group (`parallel/mesh.py::batch_group`),
 whose batch must divide by D x S, where JAX splits the slices' W axis.
 
-JAX's orbax checkpoints raise NotImplementedError.
+A checkpoint is the port's `state.pt` or the JAX package's `state.orbax` or
+`state.msgpack` (`train/checkpoint.py`); `checkpoint_backend` 'orbax'
+writes `state.orbax`.
 """
 
 from __future__ import annotations
@@ -112,7 +114,7 @@ from ..parallel.spatial import slab_map
 from ..parallel.tensor import attach_model_group, gather_train_state, shard_train_state
 from ..utils.logging import MetricWriter, get_global_idx, log_class_dices, log_data_parameter_stats
 from .checkpoint import (
-    check_backend, checkpoint_exists, jax_checkpoint_only, restore_checkpoint, save_checkpoint,
+    check_backend, checkpoint_exists, restore_checkpoint, save_checkpoint,
 )
 from .optim import cosine_warm_restarts_lr, exp_lr
 from .snapshot import export_train_label_snapshot
@@ -292,35 +294,23 @@ def _to_device(host_batch: dict, dev: torch.device) -> dict:
     return out
 
 
-def _refuse_orbax_checkpoint(path):
-    if jax_checkpoint_only(path) and (Path(path) / "state.orbax").exists():
-        raise NotImplementedError(
-            f"{path} holds the JAX package's orbax checkpoint (state.orbax), which the JAX "
-            "package restores before its state.msgpack, and no state.pt; the port does not "
-            "read orbax checkpoints")
-
-
 def _resume_point(config: TrainConfig, run_name: str, fold_idx: int):
     """-> (first epoch, checkpoint path) of the JAX driver's resume rules
     (`driver.py:301-320`): an explicit checkpoint_epx re-runs that epoch from
     its checkpoint; auto_resume continues after the newest one. A checkpoint
-    is the port's `state.pt` or the JAX package's `state.msgpack`; a
-    directory whose checkpoint is JAX's orbax one raises."""
+    is the port's `state.pt` or the JAX package's `state.orbax` or
+    `state.msgpack`."""
     epx_start = config.checkpoint_epx or 0
     ckpt_name = config.checkpoint_name or run_name
     prefix = Path(config.mdl_save_prefix)
     ckpt_path = prefix / f"{ckpt_name}_fold{fold_idx}_epx{epx_start}"
-    if config.checkpoint_epx is not None:
-        _refuse_orbax_checkpoint(ckpt_path)
     if config.auto_resume and config.checkpoint_epx is None:
         pat = re.compile(rf"^{re.escape(ckpt_name)}_fold{fold_idx}_epx(\d+)$")
         newest = -1
         for d in prefix.glob(f"{ckpt_name}_fold{fold_idx}_epx*"):
             m = pat.match(d.name)
-            if m:
-                _refuse_orbax_checkpoint(d)
-                if checkpoint_exists(d):
-                    newest = max(newest, int(m.group(1)))
+            if m and checkpoint_exists(d):
+                newest = max(newest, int(m.group(1)))
         if newest >= 0:
             ckpt_path = prefix / f"{ckpt_name}_fold{fold_idx}_epx{newest}"
             epx_start = newest + 1
@@ -376,7 +366,6 @@ def train_dl(run_name: str, config: TrainConfig, dataset, atlas_count=None,
     )
 
     for fold_idx in fold_range:
-        # Before the fold's data work, so that an orbax checkpoint raises first.
         epx_start, ckpt_path = _resume_point(config, run_name, fold_idx)
         if config.debug:
             num_val_images, fold_atlas_count = 2, 1

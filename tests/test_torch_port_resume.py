@@ -1,7 +1,7 @@
 """Checkpoints and resume of the port's `train_dl` on the CPU (the port's
 version of `tests/test_resume.py`, both cases), the checkpoint's whole train
-state, the DP override from a snapshot, label disturbance, and the options
-that raise until a later slice brings them.
+state in each backend, the DP override from a snapshot, label disturbance,
+and the options that need processes of their own.
 
 As in the JAX driver (`driver.py:420`, `:434`), a resumed run restarts its
 random streams (the augmentation generator and the numpy permutations), so
@@ -121,20 +121,11 @@ def test_checkpoint_round_trip_and_backends(tmp_path):
     a.dp_params = torch.arange(5, dtype=torch.float32)
     save_checkpoint(tmp_path / "c", a, cfg)
     _assert_states_equal(restore_checkpoint(tmp_path / "c", _fresh_state(cfg, 5)), a)
-    with pytest.raises(NotImplementedError, match="state.pt"):
-        save_checkpoint(tmp_path / "o", a, cfg, backend="orbax")
+    save_checkpoint(tmp_path / "o", a, cfg, backend="orbax")
+    assert sorted(p.name for p in (tmp_path / "o").iterdir()) == ["config.json", "state.orbax"]
+    _assert_states_equal(restore_checkpoint(tmp_path / "o", _fresh_state(cfg, 5)), a)
     with pytest.raises(ValueError, match="unknown checkpoint backend"):
         save_checkpoint(tmp_path / "o", a, cfg, backend="zip")
-
-
-@pytest.mark.parametrize("kw, slice_name", [
-    (dict(checkpoint_backend="orbax"), "state.pt"),
-])
-def test_unported_options_raise(tmp_path, kw, slice_name):
-    cfg = TrainConfig(output_dir=str(tmp_path / "out"), **kw)
-    with pytest.raises(NotImplementedError, match=slice_name):
-        pd.train_dl("x", cfg, None, device="cpu")
-    assert not (tmp_path / "out").exists()
 
 
 @pytest.mark.parametrize("kw, match", [
@@ -218,26 +209,6 @@ def test_disturbance_follows_the_host_stream(tmp_path):
     for i in want:
         _id = dataset.get_3d_ids()[i]
         assert not np.array_equal(dataset.modified_label_data_3d[_id], dataset.label_data_3d[_id])
-
-
-@pytest.mark.parametrize("resume", [dict(auto_resume=True), dict(checkpoint_epx=1)])
-def test_jax_checkpoint_raises_before_training(tmp_path, monkeypatch, resume):
-    """A checkpoint directory that holds the JAX package's orbax checkpoint
-    (`state.orbax`, which JAX restores before a `state.msgpack`,
-    `deep_staple_tpu/train/checkpoint.py:106-113`) and no `state.pt` raises,
-    naming it, before any data work or train step; it is never skipped."""
-    generate_synthetic_crossmoda(tmp_path / "ds", num_cases=3, atlas_count=2, size=(10, 10, 10))
-    ckpt = tmp_path / "models" / "jaxrun_fold0_epx1"
-    (ckpt / "state.orbax").mkdir(parents=True)
-    (ckpt / "state.msgpack").write_bytes(b"")
-    cfg = TrainConfig(epochs=2, **_base(tmp_path, save_every=1), **resume)
-    dataset, ac = prepare_data(cfg)
-    for name in ("precompute_sample_metrics", "make_train_step", "restore_checkpoint"):
-        monkeypatch.setattr(pd, name, lambda *a, _n=name, **k: pytest.fail(f"{_n} ran"))
-    with pytest.raises(NotImplementedError, match="orbax") as err:
-        pd.train_dl("jaxrun", cfg, dataset, ac, device="cpu")
-    assert str(ckpt) in str(err.value)
-    assert not (tmp_path / "out").exists()
 
 
 @pytest.mark.parametrize("resume, first_epoch", [

@@ -109,6 +109,33 @@ def test_snapshot_consensus_in_both_packages(exports, snapshot):
     _compare_consensus(got, want)
 
 
+@pytest.mark.parametrize("snapshot", ["port", "jax"])
+def test_snapshot_staple_against_float64(exports, snapshot):
+    """Five EM passes of each package's STAPLE against a float64 EM in numpy
+    over the same decisions: the port's sensitivities and specificities
+    within 2e-5 (measured 6.2e-6 at most, since its plain pass sums in
+    float64; 1.1e-4 before, with float32 sums), JAX's reported (4.7e-5 at
+    most: its float32 einsums)."""
+    from deep_staple_torch.consensus.evaluate import build_consensus_dicts
+    from test_torch_port_staple_float64 import em_float64
+
+    ppath, jpath, _, _ = exports
+    path = ppath if snapshot == "port" else jpath
+    got = evaluate_consensus(path, staple_max_iterations=5, device="cpu")
+    want = jax_evaluate(path, staple_max_iterations=5)
+    gaps = {"port": 0.0, "jax": 0.0}
+    for f_id, fixed in build_consensus_dicts(load_snapshot(path)).items():
+        atlases = [k for k, v in fixed.items() if isinstance(v, dict)]
+        d = np.stack([np.asarray(fixed[m]["warped_label"]).reshape(-1) for m in atlases])
+        p, q = em_float64(d, 5)
+        for i, m in enumerate(atlases):
+            for key, exact in (("staple_sensitivity", p[i]), ("staple_specificity", q[i])):
+                gaps["port"] = max(gaps["port"], abs(got[f_id][m][key] - exact))
+                gaps["jax"] = max(gaps["jax"], abs(float(want[f_id][m][key]) - exact))
+    print(f"largest gap to the float64 EM: {gaps}")
+    assert gaps["port"] <= 2e-5
+
+
 def test_inference_fn_matches_snapshot_prediction(exports):
     ppath, _, model, pds = exports
     snap = load_snapshot(ppath)
