@@ -1,0 +1,7 @@
+"""Share of the traced training window with nothing running on the card, in %."""
+
+from portbench import layers
+
+
+def read(rec):
+    return layers.idle_pct(rec)

@@ -1,0 +1,8 @@
+"""The training step's model FLOPs (three forwards) a second over the dense
+peak of the configuration's dtype, in %."""
+
+from portbench import layers
+
+
+def read(rec):
+    return layers.mfu(rec)

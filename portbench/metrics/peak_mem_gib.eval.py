@@ -1,0 +1,7 @@
+"""The card's peak allocated memory over the serving window, in GiB."""
+
+from portbench import layers
+
+
+def read(rec):
+    return layers.peak_gib(rec)
