@@ -1455,6 +1455,7 @@ def phase_train_dl(rec, seed, root):
     from deep_staple_torch.train.checkpoint import restore_checkpoint
     from deep_staple_torch.train.prepare import prepare_data
     from deep_staple_torch.train.state import create_state
+    from deep_staple_torch.utils import tracing
     from deep_staple_torch.utils.logging import MetricWriter
 
     out = rec["train_dl"] = {}
@@ -1472,11 +1473,13 @@ def phase_train_dl(rec, seed, root):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
+        program = tracing.record()
         try:
             t = _sync()
             res = driver.train_dl("smoke", cfg, dataset, atlas_count, writer=writer, device=DEV)[0]
             out["train_dl_s"] = _sync() - t
         finally:
+            program.stop()
             undo()
         out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
         train_counts = read_counts()
@@ -1503,7 +1506,8 @@ def phase_train_dl(rec, seed, root):
         gaps = [(b - a) * 1e3 for k, (a, b) in enumerate(zip(calls, calls[1:]))
                 if (k + 1) % per_epoch]
         out["step_ms_median"] = statistics.median(gaps)
-        out["mean_step_time_ms"] = res["mean_step_time"] * 1e3
+        step_calls = [s.end_ns - s.start_ns for s in program.spans if s.name == "train.step"]
+        out["step_call_ms"] = statistics.mean(step_calls[2:]) / 1e6
         nval = len(timing["val_s"]) // cfg.epochs
         out["val_s_per_epoch"] = [sum(timing["val_s"][k * nval:(k + 1) * nval])
                                   for k in range(cfg.epochs)]
@@ -1524,8 +1528,8 @@ def phase_train_dl(rec, seed, root):
                if "scores/val_dice_mean_wo_bg_fold0" in h]
         log(f"[train_dl] train_dl {out['train_dl_s']:.1f} s: epochs (train part) "
             f"{', '.join(f'{s:.2f}' for s in out['epoch_train_s'])} s, step {out['step_ms_median']:.1f} "
-            f"ms (median gap between step calls; driver's mean_step_time "
-            f"{out['mean_step_time_ms']:.1f}), validation "
+            f"ms (median gap between step calls; the train.step span's mean "
+            f"{out['step_call_ms']:.1f}), validation "
             f"{', '.join(f'{s:.2f}' for s in out['val_s_per_epoch'])} s an epoch, checkpoints "
             f"{', '.join(f'{s:.2f}' for s in out['checkpoint_s'])} s, snapshot export "
             f"{out['export_s']:.2f} s, peak memory {out['peak_mem_gb']:.2f} GB")

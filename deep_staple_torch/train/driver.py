@@ -112,6 +112,7 @@ from ..parallel.multihost import (
 )
 from ..parallel.spatial import slab_map
 from ..parallel.tensor import attach_model_group, gather_train_state, shard_train_state
+from ..utils import tracing
 from ..utils.logging import MetricWriter, get_global_idx, log_class_dices, log_data_parameter_stats
 from .checkpoint import (
     check_backend, checkpoint_exists, restore_checkpoint, save_checkpoint,
@@ -284,14 +285,29 @@ def check_supported(config: TrainConfig):
 
 def _to_device(host_batch: dict, dev: torch.device) -> dict:
     """Host arrays -> tensors on `dev`; through pinned memory to the card, so
-    that the copy does not wait for the card's queue."""
+    that the copy does not wait for the card's queue. Counts the bytes it
+    copies to the card (`h2d_bytes`) and the pinned blocks it made the host
+    allocator create (`pinned_allocs`) while tracing records."""
+    pinned = dev.type == "cuda" and tracing.active() is not None
+    allocs = _pinned_allocs() if pinned else 0
     out = {}
     for k, v in host_batch.items():
         t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(v))
         if dev.type == "cuda" and t.device.type == "cpu":
-            t = t.pin_memory().to(dev, non_blocking=True)
+            with tracing.span("to_device.pin"):
+                t = t.pin_memory()
+            with tracing.span("to_device.copy"):
+                t = t.to(dev, non_blocking=True)
+            tracing.count("h2d_bytes", t.nbytes)
         out[k] = t
+    if pinned:
+        tracing.count("pinned_allocs", _pinned_allocs() - allocs)
     return out
+
+
+def _pinned_allocs() -> int:
+    """Blocks the pinned host allocator has created so far."""
+    return int(torch.cuda.host_memory_stats()["num_host_alloc"])
 
 
 def _resume_point(config: TrainConfig, run_name: str, fold_idx: int):
@@ -331,7 +347,14 @@ def train_dl(run_name: str, config: TrainConfig, dataset, atlas_count=None,
              writer: MetricWriter | None = None, device=None, draws_on_host: bool = False):
     """Train on `device` (CUDA unless "cpu" is asked for). Returns
     {fold: {"state", "snapshot_path", "train_idxs", "clean_idxs", "wise_dice",
-    "mean_step_time", "writer"}} as the JAX driver does."""
+    "writer"}}.
+
+    While `utils/tracing.py` records, each batch's phases are spans of the
+    batch's step number: `train.batch` (`sample_batch`), `train.draws`,
+    `train.to_device`, `train.step` (the step call), `train.readback` (the
+    previous step's metrics), and each epoch's `train.checkpoint` and
+    `train.validation`. With `profile_dir`, the profiled epoch's spans are
+    recorded and written into its Chrome trace as a "program" process."""
     check_supported(config)
     use_2d = config.use_2d_normal_to is not None
     if config.mesh_space_axis > 1 and not use_2d:
@@ -485,15 +508,20 @@ def train_dl(run_name: str, config: TrainConfig, dataset, atlas_count=None,
             dev_gen.manual_seed(int(torch.randint(2**62, (1,), generator=gen)))
         t_start = time.time()
         sched_steps = int(state.sched_steps)
-        step_times = []
         started_steps = set()
+        n_steps = 0
 
         for epx in range(epx_start, config.epochs):
             global_idx = get_global_idx(fold_idx, epx, config.epochs)
             dataset.train(use_modified=True)
 
-            profiling = config.profile_dir is not None and epx == config.profile_epoch
-            prof = _start_profile(dev) if profiling else None
+            prof = None
+            if config.profile_dir is not None and epx == config.profile_epoch:
+                # The caller's recorder where one records, else one for the epoch.
+                own_program = tracing.active() is None
+                program = tracing.active() or tracing.record()
+                program_since = program.now()
+                prof = _start_profile(dev)
 
             perm = np.random.permutation(train_idxs)
             epx_losses, dices, class_dices = [], [], []
@@ -517,14 +545,19 @@ def train_dl(run_name: str, config: TrainConfig, dataset, atlas_count=None,
                 bidx = bidx[: len(bidx) // split * split]
                 if len(bidx) == 0:
                     continue
-                host_batch = dataset.sample_batch(
-                    bidx if data is None else host_shard_indices(bidx, data.size, data.rank))
-                # The global batch's draws; each rank keeps its rows.
-                draws = draw_augment(gen, (len(bidx),) + host_batch["image"].shape[1:],
-                                     augment_params, pre_interp, noise_generator=dev_gen)
-                draws = rank_draws(draws, data)
-                batch = _to_device(host_batch, dev)
-                draws = AugmentDraws(*_to_device(draws._asdict(), dev).values())
+                tracing.step(n_steps)
+                n_steps += 1
+                with tracing.span("train.batch"):
+                    host_batch = dataset.sample_batch(
+                        bidx if data is None else host_shard_indices(bidx, data.size, data.rank))
+                with tracing.span("train.draws"):
+                    # The global batch's draws; each rank keeps its rows.
+                    draws = draw_augment(gen, (len(bidx),) + host_batch["image"].shape[1:],
+                                         augment_params, pre_interp, noise_generator=dev_gen)
+                    draws = rank_draws(draws, data)
+                with tracing.span("train.to_device"):
+                    batch = _to_device(host_batch, dev)
+                    draws = AugmentDraws(*_to_device(draws._asdict(), dev).values())
 
                 lr = (cosine_warm_restarts_lr(config.lr, sched_steps) if use_2d
                       else exp_lr(config.lr, sched_steps))
@@ -532,12 +565,12 @@ def train_dl(run_name: str, config: TrainConfig, dataset, atlas_count=None,
                 if world is not None and id(step_fn) not in started_steps:
                     coordination_barrier(world)
                 started_steps.add(id(step_fn))
-                t0 = time.time()
-                state, metrics = step_fn(state, batch, lr, generator=dev_gen, draws=draws)
+                with tracing.span("train.step"):
+                    state, metrics = step_fn(state, batch, lr, generator=dev_gen, draws=draws)
                 if pending_metrics is not None:
-                    _consume(pending_metrics)
+                    with tracing.span("train.readback"):
+                        _consume(pending_metrics)
                 pending_metrics = metrics
-                step_times.append(time.time() - t0)
 
                 # Scheduler quirk: step per batch when epx % atlas_count == 0 (:794-795).
                 if config.use_scheduling and epx % fold_atlas_count == 0:
@@ -566,7 +599,8 @@ def train_dl(run_name: str, config: TrainConfig, dataset, atlas_count=None,
                     break
 
             if pending_metrics is not None:
-                _consume(pending_metrics)
+                with tracing.span("train.readback"):
+                    _consume(pending_metrics)
             if pp_devices is not None:
                 # Validation, checkpoints and the snapshot run on one device.
                 place_model(state, pp_devices[0])
@@ -578,6 +612,9 @@ def train_dl(run_name: str, config: TrainConfig, dataset, atlas_count=None,
                 Path(config.profile_dir).mkdir(parents=True, exist_ok=True)
                 trace = Path(config.profile_dir) / f"{run_name}_fold{fold_idx}_epx{epx}.trace.json"
                 prof.export_chrome_trace(str(trace))
+                program.add_chrome_track(trace, since=program_since)
+                if own_program:
+                    program.stop()
                 print(f"profiler trace written to {trace}")
 
             state.sched_steps = sched_steps
@@ -610,27 +647,30 @@ def train_dl(run_name: str, config: TrainConfig, dataset, atlas_count=None,
                 )
 
             if (epx % config.save_every == 0) or (epx + 1 == config.epochs):
-                # The single-device layout, gathered over each model group.
-                full = state if tp is None else gather_train_state(
-                    state, make_model(config, num_classes)[0])
-                if is_main:
-                    _path = Path(config.mdl_save_prefix) / f"{run_name}_fold{fold_idx}_epx{epx}"
-                    save_checkpoint(_path, full, config, backend=config.checkpoint_backend)
-                del full
+                with tracing.span("train.checkpoint"):
+                    # The single-device layout, gathered over each model group.
+                    full = state if tp is None else gather_train_state(
+                        state, make_model(config, num_classes)[0])
+                    if is_main:
+                        _path = Path(config.mdl_save_prefix) / f"{run_name}_fold{fold_idx}_epx{epx}"
+                        save_checkpoint(_path, full, config, backend=config.checkpoint_backend)
+                    del full
 
             # --- validation (reference :876-955): always full 3D volumes ---
             dataset.eval()
             val_dices, val_class_dices = [], []
-            for val_idx in val_3d_idxs:
-                s3 = dataset.get_3d_item(val_idx)
-                val_batch = _to_device({
-                    "image": s3["image"][None].astype(np.float32),
-                    "label": s3["label"][None].astype(np.int32),
-                }, dev)
-                _, b_dice = eval_step(val_batch)
-                b_dice = b_dice.cpu().numpy()
-                val_dices.append(batch_dice_over_all(b_dice, exclude_bg=True))
-                val_class_dices.append(batch_dice_per_class(b_dice, dataset.label_tags, exclude_bg=True))
+            with tracing.span("train.validation"):
+                for val_idx in val_3d_idxs:
+                    s3 = dataset.get_3d_item(val_idx)
+                    val_batch = _to_device({
+                        "image": s3["image"][None].astype(np.float32),
+                        "label": s3["label"][None].astype(np.int32),
+                    }, dev)
+                    _, b_dice = eval_step(val_batch)
+                    b_dice = b_dice.cpu().numpy()
+                    val_dices.append(batch_dice_over_all(b_dice, exclude_bg=True))
+                    val_class_dices.append(batch_dice_per_class(b_dice, dataset.label_tags,
+                                                                exclude_bg=True))
             mean_val = float(np.nanmean(val_dices)) if val_dices else float("nan")
             print(f"val_dice_mean_wo_bg_fold{fold_idx} {mean_val*100:.2f}%")
             writer.log({f"scores/val_dice_mean_wo_bg_fold{fold_idx}": mean_val}, step=global_idx)
@@ -680,7 +720,6 @@ def train_dl(run_name: str, config: TrainConfig, dataset, atlas_count=None,
             "train_idxs": train_idxs,
             "clean_idxs": clean_idxs,
             "wise_dice": wise_dice,
-            "mean_step_time": float(np.mean(step_times[2:])) if len(step_times) > 2 else float("nan"),
             "writer": writer,
         }
 

@@ -32,6 +32,16 @@ the touched rows before SparseAdam, so that every rank takes the same
 update; the losses are summed and the Dice rows gathered. The separable
 warp (K1) warps each rank's own rows, as JAX's `shard_map` does.
 
+While `utils/tracing.py` records, a step's phases are spans:
+`step.augment` (the draws where none are given, the warp, the features),
+`step.forward` (the forward and its loss), `step.backward` (the gradient of
+that loss; under remat it holds the recomputed forward), `step.optimizer`
+(AdamW with its collectives), `step.dp_pass` (strict OOL's second forward,
+the DP loss and its gradient), `step.dp_optimizer` (SparseAdam's rows) and
+`step.dice`; not out of line, the single forward is `step.forward` and the
+joint gradient `step.backward`. The eval step's are `eval.resize`,
+`eval.forward`, `eval.argmax` and `eval.dice`.
+
 With a model axis as well (`parallel/tensor.py`), `data` is the data group
 of this rank's model index and every sum above spans it alone: the ranks of
 a model group hold the same rows, so a sum over the world would count the
@@ -58,6 +68,7 @@ from ..ops.stacking import make_2d_stack_from_3d, make_3d_from_2d_stack
 from ..parallel.mesh import attach_data_group
 from ..parallel.spatial import SlabAxis, even_bounds, gather_slabs, slab_axes
 from ..parallel.tensor import replicated_parameters
+from ..utils import tracing
 from .losses import dp_loss_fn, weighted_cross_entropy
 from .optim import set_lr, sparse_adam_update
 from .state import DeepStapleState
@@ -194,15 +205,17 @@ def make_train_step(model, config: TrainConfig, class_weights, fixed_weighting,
 
     def train_step(state: DeepStapleState, batch, lr, generator=None, draws=None):
         img, lbl, mod = batch["image"], batch["label"], batch["modified_label"]
-        if augment:
-            if draws is None:
-                shape = (img.shape[0] * (1 if data is None else data.size),) + tuple(img.shape[1:])
-                draws = rank_draws(draw_augment(generator, shape, augment_params,
-                                                pre_interpolation_factor), data)
-            img, lbl, mod, _ = augment_sample_pair(img, lbl, mod, draws, augment_params,
-                                                   pre_interpolation_factor, order, use_2d)
+        with tracing.span("step.augment"):
+            if augment:
+                if draws is None:
+                    shape = ((img.shape[0] * (1 if data is None else data.size),)
+                             + tuple(img.shape[1:]))
+                    draws = rank_draws(draw_augment(generator, shape, augment_params,
+                                                    pre_interpolation_factor), data)
+                img, lbl, mod, _ = augment_sample_pair(img, lbl, mod, draws, augment_params,
+                                                       pre_interpolation_factor, order, use_2d)
+            x = _featurize(img, config.use_mind, use_2d)
         idxs = batch["dataset_idx"].long()
-        x = _featurize(img, config.use_mind, use_2d)
         params = [p for p in model.parameters() if p.requires_grad]
         metrics = {}
         dp_grads = None
@@ -216,10 +229,13 @@ def make_train_step(model, config: TrainConfig, class_weights, fixed_weighting,
         if use_dp and not config.use_ool_dp_loss:
             # One forward; the DP loss updates the model and the DP vector.
             dp_vec = state.dp_params.detach().clone().requires_grad_(True)
-            logits = forward(x, generator)
-            dp_loss = dp_objective(logits, mod, dp_vec, idxs, voxels)
-            *grads, dp_grads = torch.autograd.grad(dp_loss, params + [dp_vec])
-            apply_grads(state, params, grads, lr)
+            with tracing.span("step.forward"):
+                logits = forward(x, generator)
+                dp_loss = dp_objective(logits, mod, dp_vec, idxs, voxels)
+            with tracing.span("step.backward"):
+                *grads, dp_grads = torch.autograd.grad(dp_loss, params + [dp_vec])
+            with tracing.span("step.optimizer"):
+                apply_grads(state, params, grads, lr)
             logits = logits.detach()
             with torch.no_grad():
                 ce_loss = total(weighted_cross_entropy(logits, mod, class_weights, data, space))
@@ -227,43 +243,49 @@ def make_train_step(model, config: TrainConfig, class_weights, fixed_weighting,
         else:
             strict_async = use_dp and config.ool_mode == "strict" and async_bn
             start = {n: b.clone() for n, b in model.named_buffers()} if strict_async else None
-            logits = forward(x, generator)
-            ce_loss = weighted_cross_entropy(logits, mod, class_weights, data, space)
-            apply_grads(state, params, torch.autograd.grad(ce_loss, params), lr)
+            with tracing.span("step.forward"):
+                logits = forward(x, generator)
+                ce_loss = weighted_cross_entropy(logits, mod, class_weights, data, space)
+            with tracing.span("step.backward"):
+                grads = torch.autograd.grad(ce_loss, params)
+            with tracing.span("step.optimizer"):
+                apply_grads(state, params, grads, lr)
             logits, ce_loss = logits.detach(), total(ce_loss.detach())
             if use_dp:
-                if config.ool_mode == "strict":
-                    with torch.no_grad():
-                        if strict_async:
-                            after = _swap_buffers(model, start)
-                            dp_logits = forward(x, generator)
-                            _swap_buffers(model, after)
-                        else:
-                            dp_logits = forward(x, generator)
-                else:
-                    dp_logits = logits
-                dp_vec = state.dp_params.detach().clone().requires_grad_(True)
-                with torch.enable_grad():
-                    dp_loss = dp_objective(dp_logits, mod, dp_vec, idxs, voxels)
-                (dp_grads,) = torch.autograd.grad(dp_loss, [dp_vec])
-                metrics["dp_loss"] = total(dp_loss.detach())
+                with tracing.span("step.dp_pass"):
+                    if config.ool_mode == "strict":
+                        with torch.no_grad():
+                            if strict_async:
+                                after = _swap_buffers(model, start)
+                                dp_logits = forward(x, generator)
+                                _swap_buffers(model, after)
+                            else:
+                                dp_logits = forward(x, generator)
+                    else:
+                        dp_logits = logits
+                    dp_vec = state.dp_params.detach().clone().requires_grad_(True)
+                    with torch.enable_grad():
+                        dp_loss = dp_objective(dp_logits, mod, dp_vec, idxs, voxels)
+                    (dp_grads,) = torch.autograd.grad(dp_loss, [dp_vec])
+                    metrics["dp_loss"] = total(dp_loss.detach())
 
         dp_params, dp_opt = state.dp_params, state.dp_opt_state
         if use_dp and not config.override_embedding_weights:
-            if data is None and space is None:
-                touched = torch.zeros_like(dp_params, dtype=torch.bool)
-                touched[idxs] = True
-            else:
-                # The dense gradient and the touched rows of every rank, in
-                # one reduction.
-                hit = torch.zeros_like(dp_grads)
-                hit[idxs] = 1.0
-                both = total(torch.cat([dp_grads, hit]))
-                dp_grads, touched = both[: len(hit)], both[len(hit):] > 0
-            dp_params, dp_opt = sparse_adam_update(dp_params, dp_grads, dp_opt, touched,
-                                                   config.lr_inst_param)
+            with tracing.span("step.dp_optimizer"):
+                if data is None and space is None:
+                    touched = torch.zeros_like(dp_params, dtype=torch.bool)
+                    touched[idxs] = True
+                else:
+                    # The dense gradient and the touched rows of every rank, in
+                    # one reduction.
+                    hit = torch.zeros_like(dp_grads)
+                    hit[idxs] = 1.0
+                    both = total(torch.cat([dp_grads, hit]))
+                    dp_grads, touched = both[: len(hit)], both[len(hit):] > 0
+                dp_params, dp_opt = sparse_adam_update(dp_params, dp_grads, dp_opt, touched,
+                                                       config.lr_inst_param)
 
-        with torch.no_grad():
+        with tracing.span("step.dice"), torch.no_grad():
             if space is None:
                 metrics["dice"] = dice_from_int_labels(logits.argmax(dim=-1), lbl, num_classes)
             else:  # the slabs' integer counts, summed over the space group
@@ -307,23 +329,30 @@ def make_eval_step(model, config: TrainConfig, num_classes: int, eval_scale_fact
 
     def eval_step(batch):
         with torch.inference_mode():
-            img, lbl = interpolate_sample(batch["image"], batch["label"], eval_scale_factor, False)
+            with tracing.span("eval.resize"):
+                img, lbl = interpolate_sample(batch["image"], batch["label"], eval_scale_factor,
+                                              False)
             if stack_dim is not None:
-                stack = make_2d_stack_from_3d(img[:, None], stack_dim)[:, 0]
-                if space is not None:
-                    share = SlabAxis(space, even_bounds(stack.shape[0], space.size))
-                    stack = stack[share.start:share.stop]
-                logits = model(_featurize(stack, config.use_mind, True), train=False)["out"]
-                pred2d = logits.argmax(dim=-1).to(torch.int32)
-                if space is not None:
-                    pred2d = gather_slabs(pred2d, share, dim=0)
-                pred = make_3d_from_2d_stack(pred2d[:, None], stack_dim, img.shape[0])[:, 0]
+                with tracing.span("eval.forward"):
+                    stack = make_2d_stack_from_3d(img[:, None], stack_dim)[:, 0]
+                    if space is not None:
+                        share = SlabAxis(space, even_bounds(stack.shape[0], space.size))
+                        stack = stack[share.start:share.stop]
+                    logits = model(_featurize(stack, config.use_mind, True), train=False)["out"]
+                with tracing.span("eval.argmax"):
+                    pred2d = logits.argmax(dim=-1).to(torch.int32)
+                    if space is not None:
+                        pred2d = gather_slabs(pred2d, share, dim=0)
+                    pred = make_3d_from_2d_stack(pred2d[:, None], stack_dim, img.shape[0])[:, 0]
             else:
-                logits = model(_featurize(img, config.use_mind, False), train=False)["out"]
-                pred = logits.argmax(dim=-1).to(torch.int32)
-                if space is not None:
-                    pred = gather_slabs(pred, model.space.axes[0])
-            b_dice = dice_from_int_labels(pred, lbl, num_classes)
+                with tracing.span("eval.forward"):
+                    logits = model(_featurize(img, config.use_mind, False), train=False)["out"]
+                with tracing.span("eval.argmax"):
+                    pred = logits.argmax(dim=-1).to(torch.int32)
+                    if space is not None:
+                        pred = gather_slabs(pred, model.space.axes[0])
+            with tracing.span("eval.dice"):
+                b_dice = dice_from_int_labels(pred, lbl, num_classes)
         return pred, b_dice
 
     return eval_step

@@ -44,6 +44,7 @@ from deep_staple_torch.models import init_weights
 from deep_staple_torch.models.interop import state_dict_to_flax, state_from_jax
 from deep_staple_torch.train import driver as pd
 from deep_staple_torch.train.prepare import prepare_data
+from deep_staple_torch.utils import tracing
 from torch_port_state import jax_state
 
 torch.set_num_threads(1)
@@ -147,7 +148,12 @@ def runs(tmp_path_factory):
         jcfg = _config(JaxConfig, root, "jax")
         jres = jd.train_dl("drv", jcfg, *jax_prepare(jcfg))[0]
         pcfg = _config(TrainConfig, root, "port")
-        pres = pd.train_dl("drv", pcfg, *prepare_data(pcfg), device="cpu")[0]
+        program = tracing.record()
+        try:
+            pres = pd.train_dl("drv", pcfg, *prepare_data(pcfg), device="cpu")[0]
+        finally:
+            program.stop()
+        pres["program"] = program
         # The port in float64 from the same start: how far each float32 run
         # drifts from it.
         port_dtype["dtype"] = torch.float64
@@ -255,7 +261,9 @@ def test_driver_dp_vector_matches_jax(runs):
     np.testing.assert_array_equal(pres["train_idxs"], jres["train_idxs"])
     np.testing.assert_array_equal(pres["clean_idxs"], jres["clean_idxs"])
     np.testing.assert_allclose(pres["wise_dice"], jres["wise_dice"], rtol=1e-6)
-    assert np.isfinite(pres["mean_step_time"])
+    steps = [s for s in pres["program"].spans if s.name == "train.step"]
+    assert [s.step for s in steps] == list(range(6))
+    assert all(s.parent is None and s.end_ns > s.start_ns for s in steps)
 
 
 def test_driver_checkpoints(runs):
