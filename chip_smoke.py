@@ -5,7 +5,7 @@
 
     phases: device, build, kernels, train_kernels, consensus_kernels, serve,
             e2e, profile, train, train_e2e, train_profile, consensus,
-            train_dl, pipeline, side_paths, oracle, registration, jax_checkpoint,
+            train_dl, sync, pipeline, side_paths, oracle, registration, jax_checkpoint,
             orbax, doctor, dataset_tools, parallel, times (default: all)
 
 Run from the repository root. It builds every kernel of the port from the
@@ -37,6 +37,11 @@ give it, and drives both main paths at full size:
     of 3 steps at batch 8, validation, a checkpoint every epoch, the
     snapshot export), `evaluate_consensus` on that snapshot, and a small
     float32 run on the card against the CPU with the same draws;
+  * the sync check: on the same fixture, the production and the reference
+    step with the driver's per-batch host phases and its deferred readback
+    under `torch.cuda.set_sync_debug_mode("error")`, after 2 steps of
+    each; then `train_dl` for 4 epochs of 3 steps, its readbacks inside
+    an epoch's loop waiting on none (`readback_waited`);
   * the pipeline: `deep_staple_torch.pipeline.main` with `--preset
     production` and no --device on the same fixture (2 epochs, the
     snapshot, its consensus, the nnU-Net export), its summary and files
@@ -121,8 +126,8 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 WORK = REPO / "build" / "chip_smoke"
 PHASES = ("device", "build", "kernels", "train_kernels", "consensus_kernels", "serve", "e2e",
-          "profile", "train", "train_e2e", "train_profile", "consensus", "train_dl", "pipeline",
-          "side_paths", "oracle", "registration", "jax_checkpoint", "orbax", "doctor",
+          "profile", "train", "train_e2e", "train_profile", "consensus", "train_dl", "sync",
+          "pipeline", "side_paths", "oracle", "registration", "jax_checkpoint", "orbax", "doctor",
           "dataset_tools", "parallel", "times")
 
 # The depthwise conv's shapes at the serve CLI's defaults: size 128^3 with
@@ -1606,6 +1611,145 @@ def phase_train_dl(rec, seed, root):
     if not (step_gaps[0] <= TRAIN_DL_STEP1_RTOL and loss_gap <= TRAIN_DL_LOSS_RTOL
             and dp_scale > 0 and dp_gap <= TRAIN_DL_DP_RTOL * dp_scale):
         raise AssertionError("train_dl: the card and the CPU disagree")
+
+
+# The sync phase: SYNC_WARM steps of each configuration's step through the
+# driver's host phases, then SYNC_CHECKED more under the sync debug mode;
+# then `train_dl` in the production configuration for SYNC_DL_EPOCHS epochs
+# of 3 steps on the train_dl phase's fixture.
+SYNC_WARM, SYNC_CHECKED, SYNC_DL_EPOCHS = 2, 3, 4
+
+
+def _sync_steps(name, cfg, dataset, rows, seed):
+    """SYNC_WARM + SYNC_CHECKED steps of `cfg`'s step (production's async
+    step, the one after the warm-up epoch) as the driver runs them, each
+    batch through `sample_batch`, `draw_augment` on the host generator and
+    `_to_device`, each step's metrics through the deferred readback; the
+    checked steps under `torch.cuda.set_sync_debug_mode("error")`. Batches
+    of 8 of the training `rows`. -> the record, with the sync's error."""
+    import torch
+
+    from deep_staple_torch.ops.augment import AugmentDraws, AugmentParams, draw_augment
+    from deep_staple_torch.train import driver
+    from deep_staple_torch.train.state import create_state
+    from deep_staple_torch.train.step import make_train_step
+
+    cw, fixed = driver.precompute_sample_metrics(dataset, rows, 2, False, device=DEV)[3:]
+    dataset.train(use_modified=True)
+    model, _ = driver.make_model(cfg, 2)
+    state = create_state(model, len(dataset), seed=seed, init_inst_param=cfg.init_inst_param,
+                         device=DEV)
+    step = make_train_step(model, cfg, cw, fixed, AugmentParams(),
+                           pre_interpolation_factor=dataset.pre_interpolation_factor)
+    gen = torch.Generator().manual_seed(seed)
+    dev_gen = torch.Generator(device=DEV)
+    dev_gen.manual_seed(seed)
+    dev = torch.device(DEV)
+    pending, calls = None, []
+
+    def one(k):
+        nonlocal state, pending
+        bidx = rows[(k * 8) % len(rows):][:8]
+        host = dataset.sample_batch(bidx)
+        draws = draw_augment(gen, (8,) + host["image"].shape[1:], AugmentParams(),
+                             dataset.pre_interpolation_factor, noise_generator=dev_gen)
+        batch = driver._to_device(host, dev)
+        draws = AugmentDraws(*driver._to_device(draws._asdict(), dev).values())
+        t = time.perf_counter()
+        state, metrics = step(state, batch, cfg.lr, generator=dev_gen, draws=draws)
+        calls.append((t, time.perf_counter()))
+        queued = driver._queue_readback(metrics)
+        if pending is not None:
+            driver._read_back(pending)
+        pending = queued
+
+    for k in range(SYNC_WARM):
+        one(k)
+    _sync()
+    error = None
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for k in range(SYNC_WARM, SYNC_WARM + SYNC_CHECKED):
+            one(k)
+    except RuntimeError as e:
+        error = str(e)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    loss, _ = driver._read_back(pending)
+    checked = calls[SYNC_WARM:]
+    out = {"draws_device": str(gen.device), "error": error, "last_loss": loss,
+           "step_call_ms": [(b - a) * 1e3 for a, b in checked],
+           "call_to_call_ms": [(b[0] - a[0]) * 1e3 for a, b in zip(checked, checked[1:])]}
+    log(f"[sync] {name}: {SYNC_CHECKED} steps under the sync debug mode "
+        f"{'raised: ' + error.splitlines()[0] if error else 'ran without a sync'}; draws on "
+        f"{out['draws_device']}; step calls "
+        f"{', '.join(f'{v:.1f}' for v in out['step_call_ms'])} ms, call to call "
+        f"{', '.join(f'{v:.1f}' for v in out['call_to_call_ms'])} ms; last loss {loss:.5f}")
+    del state, model, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sync(rec, seed, root):
+    """No whole-stream host sync between two step calls: the production and
+    the reference step with the driver's per-batch host phases and the
+    deferred readback under the sync debug mode (`_sync_steps`); then
+    `train_dl` in the production configuration on the fixture at `root`,
+    whose `readback_waited` is 0 at every readback inside an epoch's loop
+    (the step read has run by the time the next one is launched) and 1 at
+    each epoch's last, read after the loop on a drained queue."""
+    import tempfile
+
+    import torch
+
+    from deep_staple_torch.core.config import TrainConfig
+    from deep_staple_torch.train import driver
+    from deep_staple_torch.train.prepare import prepare_data
+    from deep_staple_torch.utils import tracing
+
+    out = rec["sync"] = {}
+    with tempfile.TemporaryDirectory(prefix="sync_") as tmp:
+        cfg = _dl_config(root, output_dir=str(Path(tmp) / "out"),
+                         mdl_save_prefix=str(Path(tmp) / "models"), epochs=SYNC_DL_EPOCHS,
+                         batch_size=8, num_val_images=2, save_every=SYNC_DL_EPOCHS,
+                         save_labels=False, log_jsonl=False)
+        dataset, atlas_count = prepare_data(cfg)
+        rows = np.random.RandomState(seed).permutation(
+            np.arange(cfg.num_val_images * atlas_count, len(dataset)))
+        rows = rows[: len(rows) // 8 * 8]
+        reference = TrainConfig(**{k: getattr(cfg, k) for k in (
+            "dataset", "reg_state", "dataset_directory", "crop_3d_w_dim_range", "batch_size",
+            "num_val_images")})
+        for name, c in (("production", cfg), ("reference", reference)):
+            out[name] = _sync_steps(name, c, dataset, rows, seed)
+        program = tracing.record()
+        try:
+            driver.train_dl("sync", cfg, dataset, atlas_count, device=DEV)
+        finally:
+            program.stop()
+        del dataset
+        torch.cuda.empty_cache()
+    waited = [n for name, _, n, _ in program.counts if name == "readback_waited"]
+    reads = [(s.end_ns - s.start_ns) / 1e6 for s in program.spans if s.name == "train.readback"]
+    per_epoch = len(waited) // SYNC_DL_EPOCHS
+    last = {k for k in range(len(waited)) if (k + 1) % per_epoch == 0}
+    loop = [(w, ms) for k, (w, ms) in enumerate(zip(waited, reads)) if k not in last]
+    ends = [(w, ms) for k, (w, ms) in enumerate(zip(waited, reads)) if k in last]
+    out["train_dl"] = {"readback_waited": waited, "readback_ms": reads,
+                       "in_loop_waited": sum(w for w, _ in loop),
+                       "epoch_end_waited": sum(w for w, _ in ends)}
+    log(f"[sync] train_dl: {len(waited)} readbacks over {SYNC_DL_EPOCHS} epochs of {per_epoch} "
+        f"steps; readback_waited {waited} ({out['train_dl']['in_loop_waited']} of {len(loop)} "
+        f"inside the loops, {out['train_dl']['epoch_end_waited']} of {len(ends)} after them); "
+        f"readback ms {', '.join(f'{v:.2f}' for v in reads)}")
+    bad = [f"{n}: {out[n]['error']}" for n in ("production", "reference") if out[n]["error"]]
+    if len(waited) != SYNC_DL_EPOCHS * per_epoch or not per_epoch:
+        bad.append(f"train_dl counted {len(waited)} readbacks")
+    elif out["train_dl"]["in_loop_waited"]:
+        bad.append(f"train_dl waited at {out['train_dl']['in_loop_waited']} readbacks inside "
+                   "an epoch's loop")
+    if bad:
+        raise AssertionError(f"sync: {bad}")
 
 
 # ----------------------------------------------------------------- the CLIs
@@ -4681,7 +4825,7 @@ def main(argv=None):
         phase_consensus(rec, args.seed, *cons)
         mark("consensus")
     del cons
-    if {"train_dl", "pipeline", "side_paths", "parallel"} & set(phases):
+    if {"train_dl", "sync", "pipeline", "side_paths", "parallel"} & set(phases):
         import tempfile
 
         with tempfile.TemporaryDirectory(prefix="dl_fixture_") as tmp:
@@ -4689,6 +4833,9 @@ def main(argv=None):
             if "train_dl" in phases:
                 phase_train_dl(rec, args.seed, Path(tmp))
                 mark("train_dl")
+            if "sync" in phases:
+                phase_sync(rec, args.seed, Path(tmp))
+                mark("sync")
             if "pipeline" in phases:
                 phase_pipeline(rec, Path(tmp), args.seed)
                 mark("pipeline")

@@ -66,8 +66,10 @@ def _clip(c, hi: int):
     """c clipped to [0, hi] as `jnp.clip` (a maximum, then a minimum): a
     coordinate on a bound gets half its gradient, as in JAX; `clamp` would
     pass all of it. At the identity map of `affine_register` every border
-    voxel lies on a bound."""
-    return torch.minimum(torch.maximum(c, c.new_tensor(0.0)), c.new_tensor(float(hi)))
+    voxel lies on a bound. The bounds are filled on `c`'s device: a tensor
+    made from a host value would wait there for the card's whole queue."""
+    lo, top = (torch.full((), v, dtype=c.dtype, device=c.device) for v in (0.0, float(hi)))
+    return torch.minimum(torch.maximum(c, lo), top)
 
 
 def grid_sample_3d(inp, grid, mode: str = "bilinear", padding_mode: str = "zeros",

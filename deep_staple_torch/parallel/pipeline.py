@@ -286,7 +286,7 @@ def make_pp_train_step(model, config, class_weights, fixed_weighting, augment_pa
     from ..ops.augment import AugmentParams, augment_sample_pair, check_order, draw_augment
     from ..ops.dice import dice_from_int_labels
     from ..train.losses import _nll, dp_loss_fn
-    from ..train.optim import set_lr, sparse_adam_update
+    from ..train.optim import row_mask, set_lr, sparse_adam_update
     from ..train.step import _featurize, _swap_buffers
 
     augment_params = augment_params or AugmentParams()
@@ -373,8 +373,7 @@ def make_pp_train_step(model, config, class_weights, fixed_weighting, augment_pa
             (dp_grads,) = torch.autograd.grad(dp_loss, [dp_vec])
             metrics["dp_loss"] = dp_loss.detach()
             if not config.override_embedding_weights:
-                touched = torch.zeros_like(state.dp_params, dtype=torch.bool)
-                touched[idxs] = True
+                touched = row_mask(state.dp_params, idxs)
                 state.dp_params, state.dp_opt_state = sparse_adam_update(
                     state.dp_params, dp_grads, state.dp_opt_state, touched, config.lr_inst_param)
         with torch.no_grad():

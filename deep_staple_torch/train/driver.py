@@ -310,6 +310,32 @@ def _pinned_allocs() -> int:
     return int(torch.cuda.host_memory_stats()["num_host_alloc"])
 
 
+def _queue_readback(metrics: dict):
+    """Start reading a step's loss and Dice back -> what `_read_back` takes.
+    On the card: copies into pinned host tensors, queued right behind the
+    step, and an event after them, so that the read waits for that step
+    alone and not for the work queued since. Elsewhere: the tensors."""
+    loss, dice = metrics["loss"], metrics["dice"]
+    if not loss.is_cuda:
+        return loss, dice, None
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
+            for t in (loss, dice)]
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(loss.device))
+    return (*host, done)
+
+
+def _read_back(pending) -> tuple:
+    """-> (loss, Dice (B, C) array) of a `_queue_readback`. On the card it
+    counts `readback_waited`: 1 where the copies had not completed when the
+    read began, 0 where they had."""
+    loss, dice, done = pending
+    if done is not None:
+        tracing.count("readback_waited", int(not done.query()))
+        done.synchronize()
+    return float(loss), dice.cpu().numpy()
+
+
 def _resume_point(config: TrainConfig, run_name: str, fold_idx: int):
     """-> (first epoch, checkpoint path) of the JAX driver's resume rules
     (`driver.py:301-320`): an explicit checkpoint_epx re-runs that epoch from
@@ -352,9 +378,10 @@ def train_dl(run_name: str, config: TrainConfig, dataset, atlas_count=None,
     While `utils/tracing.py` records, each batch's phases are spans of the
     batch's step number: `train.batch` (`sample_batch`), `train.draws`,
     `train.to_device`, `train.step` (the step call), `train.readback` (the
-    previous step's metrics), and each epoch's `train.checkpoint` and
-    `train.validation`. With `profile_dir`, the profiled epoch's spans are
-    recorded and written into its Chrome trace as a "program" process."""
+    previous step's metrics; on the card with its counter `readback_waited`),
+    and each epoch's `train.checkpoint` and `train.validation`. With
+    `profile_dir`, the profiled epoch's spans are recorded and written into
+    its Chrome trace as a "program" process."""
     check_supported(config)
     use_2d = config.use_2d_normal_to is not None
     if config.mesh_space_axis > 1 and not use_2d:
@@ -528,12 +555,13 @@ def train_dl(run_name: str, config: TrainConfig, dataset, atlas_count=None,
 
             # One-step-deferred metric readback (`driver.py:436-442`): step k's
             # loss and Dice are read after step k+1 is launched, so that the
-            # host assembles the next batch while the card computes.
+            # host assembles the next batch while the card computes; on the
+            # card from copies queued with step k (`_queue_readback`).
             pending_metrics = None
 
-            def _consume(metrics_dev):
-                epx_losses.append(float(metrics_dev["loss"]))
-                b_dice = metrics_dev["dice"].cpu().numpy()
+            def _consume(pending):
+                loss, b_dice = _read_back(pending)
+                epx_losses.append(loss)
                 dices.append(batch_dice_over_all(b_dice, exclude_bg=True))
                 class_dices.append(batch_dice_per_class(b_dice, dataset.label_tags, exclude_bg=True))
 
@@ -567,6 +595,7 @@ def train_dl(run_name: str, config: TrainConfig, dataset, atlas_count=None,
                 started_steps.add(id(step_fn))
                 with tracing.span("train.step"):
                     state, metrics = step_fn(state, batch, lr, generator=dev_gen, draws=draws)
+                metrics = _queue_readback(metrics)
                 if pending_metrics is not None:
                     with tracing.span("train.readback"):
                         _consume(pending_metrics)

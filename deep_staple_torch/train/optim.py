@@ -51,6 +51,15 @@ def sparse_adam_update(params, grads, state: SparseAdamState, touched_mask, lr: 
     return params, SparseAdamState(mu=mu, nu=nu, count=count)
 
 
+def row_mask(like: torch.Tensor, idxs: torch.Tensor, dtype=torch.bool) -> torch.Tensor:
+    """A vector shaped as `like` (the DP vector), one at the rows `idxs` and
+    zero elsewhere, of `dtype`; duplicates count once. Built on `like`'s
+    device with no host value: `index_fill_` passes the one as a kernel
+    argument, where `mask[idxs] = True` copies it from the host and so waits
+    for everything queued on the card before it."""
+    return torch.zeros_like(like, dtype=dtype).index_fill_(0, idxs, 1)
+
+
 def make_model_optimizer(params, weight_decay: float = 0.01) -> torch.optim.AdamW:
     """AdamW whose learning rate the caller sets before each step."""
     return torch.optim.AdamW(params, lr=0.0, betas=(0.9, 0.999), eps=1e-8,

@@ -70,7 +70,7 @@ from ..parallel.spatial import SlabAxis, even_bounds, gather_slabs, slab_axes
 from ..parallel.tensor import replicated_parameters
 from ..utils import tracing
 from .losses import dp_loss_fn, weighted_cross_entropy
-from .optim import set_lr, sparse_adam_update
+from .optim import row_mask, set_lr, sparse_adam_update
 from .state import DeepStapleState
 
 
@@ -273,13 +273,11 @@ def make_train_step(model, config: TrainConfig, class_weights, fixed_weighting,
         if use_dp and not config.override_embedding_weights:
             with tracing.span("step.dp_optimizer"):
                 if data is None and space is None:
-                    touched = torch.zeros_like(dp_params, dtype=torch.bool)
-                    touched[idxs] = True
+                    touched = row_mask(dp_params, idxs)
                 else:
                     # The dense gradient and the touched rows of every rank, in
                     # one reduction.
-                    hit = torch.zeros_like(dp_grads)
-                    hit[idxs] = 1.0
+                    hit = row_mask(dp_grads, idxs, dp_grads.dtype)
                     both = total(torch.cat([dp_grads, hit]))
                     dp_grads, touched = both[: len(hit)], both[len(hit):] > 0
                 dp_params, dp_opt = sparse_adam_update(dp_params, dp_grads, dp_opt, touched,

@@ -150,7 +150,8 @@ def test_profiler_events_of_a_cpu_run_hold_no_device_work():
 @pytest.fixture(scope="module")
 def driver_run(tmp_path_factory):
     """A tiny strict-OOL `train_dl` (3 epochs of 2 steps) recorded whole,
-    with the second epoch profiled."""
+    with the second epoch profiled; beside it each step's loss and Dice as
+    the step returned them and as the driver's readback gave them."""
     root = tmp_path_factory.mktemp("tracing")
     generate_synthetic_crossmoda(root / "ds", num_cases=3, atlas_count=2, size=(10, 10, 10))
     cfg = TrainConfig(dataset="synthetic", reg_state="synthetic",
@@ -159,16 +160,35 @@ def driver_run(tmp_path_factory):
                       save_labels=False, save_every=2, log_jsonl=False,
                       output_dir=str(root / "out"), mdl_save_prefix=str(root / "models"),
                       profile_dir=str(root / "prof"), profile_epoch=1)
+    stepped, read = [], []
+    make_train_step, read_back = pd.make_train_step, pd._read_back
+
+    def make_step(*a, **k):
+        step = make_train_step(*a, **k)
+
+        def run(*aa, **kk):
+            state, metrics = step(*aa, **kk)
+            stepped.append((float(metrics["loss"]), metrics["dice"].numpy().copy()))
+            return state, metrics
+        return run
+
+    def reading(pending):
+        read.append(read_back(pending))
+        return read[-1]
+
     rec = tracing.record()
     try:
-        res = pd.train_dl("trc", cfg, *prepare_data(cfg), device="cpu")[0]
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(pd, "make_train_step", make_step)
+            mp.setattr(pd, "_read_back", reading)
+            res = pd.train_dl("trc", cfg, *prepare_data(cfg), device="cpu")[0]
     finally:
         rec.stop()
-    return root, rec, res
+    return root, rec, res, (stepped, read)
 
 
 def test_driver_records_each_steps_phases_in_order(driver_run):
-    _, rec, res = driver_run
+    _, rec, res, _ = driver_run
     assert res["state"].step == 6
     roots = [s for s in rec.spans if s.parent is None]
     for n in range(6):
@@ -194,8 +214,19 @@ def test_driver_records_each_steps_phases_in_order(driver_run):
     assert s["train.step"]["self_s"] < s["train.step"]["total_s"]
 
 
+def test_driver_reads_each_steps_metrics_back_in_order(driver_run):
+    """On the CPU the deferred readback reads the step's own tensors: every
+    step's loss and Dice, in the steps' order, and no counter."""
+    _, rec, _, (stepped, read) = driver_run
+    assert len(read) == len(stepped) == 6
+    for (loss, dice), (want_loss, want_dice) in zip(read, stepped):
+        assert loss == want_loss
+        np.testing.assert_array_equal(dice, want_dice)
+    assert not [c for c in rec.counts if c[0] == "readback_waited"]
+
+
 def test_driver_writes_the_profiled_epochs_spans_into_its_trace(driver_run):
-    root, rec, _ = driver_run
+    root, rec, _, _ = driver_run
     trace = json.loads((root / "prof" / "trc_fold0_epx1.trace.json").read_text())
     events = trace["traceEvents"]
     (meta,) = [e for e in events if e.get("args", {}).get("name") == "program"]
