@@ -25,9 +25,8 @@ from contextlib import nullcontext
 import numpy as np
 import torch
 
-from portbench import compare, traffic, weights
+from portbench import archs, compare, traffic, weights
 from portbench.reference import train as ref_train
-from portbench.reference.model import Net
 from portbench.trace import Profile, Spans, breakdown
 
 LABELS = ("h2d_copy", "eval_step", "pred_cpu")
@@ -46,7 +45,7 @@ def reference_logits(arch, params, stats, raw, serve_cfg, dev, quant=None):
     x = torch.nn.functional.interpolate(v[None, None], size=size, mode="trilinear",
                                         align_corners=True)
     with torch.no_grad():
-        return Net(arch, params, "eval", quant, stats=stats)(x)
+        return archs.load(arch).Net(arch, params, "eval", quant, stats=stats)(x)
 
 
 def drive(ctx) -> dict:

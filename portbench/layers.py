@@ -12,7 +12,7 @@ profiled stretch), "trace" (the profiled stretch: "window_s", "busy_s",
 
 from __future__ import annotations
 
-from portbench import flops
+from portbench import archs, flops
 from portbench.trace import DW_KERNELS, PORT_KERNELS, port_seconds
 
 
@@ -30,12 +30,13 @@ def library_ms(rec: dict):
 def dw_roofline(rec: dict):
     """The depthwise work's least time from its shapes (every forward the
     step's algorithm needs, and in training both gradients) over the device
-    time of the port's depthwise kernels, in %."""
+    time of the port's depthwise kernels, in %. None where the model has
+    no depthwise convs or none of those kernels ran."""
     tr = rec["trace"]
     dw_s = port_seconds(tr["kernels"], DW_KERNELS)
-    if not dw_s or not tr["units"]:
+    calls = archs.load(rec["arch"]).dw_calls(rec["arch"], rec["batch"], rec["spatial"])
+    if not dw_s or not tr["units"] or not calls:
         return None
-    calls = flops.dw_calls(rec["arch"], rec["batch"], rec["spatial"])
     passes = (2 if rec.get("strict") else 1) + 2 if rec["kind"] == "train" else 1
     bound = flops.dw_bound_s(calls, flops.BYTES[rec["dtype"]], passes)
     return 100.0 * bound / (dw_s / tr["units"])
@@ -47,7 +48,7 @@ def mfu(rec: dict):
     peak of the configuration's dtype, in %."""
     if not rec["untraced_units"]:
         return None
-    per = flops.forward_flops(rec["arch"], rec["batch"], rec["spatial"])
+    per = archs.load(rec["arch"]).forward_flops(rec["arch"], rec["batch"], rec["spatial"])
     per *= 3 if rec["kind"] == "train" else 1
     rate = per * rec["untraced_units"] / rec["untraced_s"]
     return 100.0 * rate / flops.TENSOR_FLOP_PER_S[rec["dtype"]]

@@ -20,8 +20,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import archs
 from . import augment
-from .model import Net, bn_names, update_stats
+from .model import update_stats
 
 BETAS, ADAM_EPS, WEIGHT_DECAY = (0.9, 0.999), 1e-8, 0.01
 EVAL_SCALE = 2.0
@@ -152,7 +153,14 @@ def run_steps(arch: dict, settings: dict, host: dict, rows: list, params0: dict,
     after the first `checked` steps}}, the DP vector as the leaf
     "dp_params"; under async BatchNorm also "async": {"losses": the async
     steps', "grads": the first async step's gradient, "before": {leaf:
-    after the warm-up}, "params": {leaf: after the async steps}}."""
+    after the warm-up}, "params": {leaf: after the async steps}}. An
+    architecture with a `run_steps` of its own runs its steps there
+    instead."""
+    module = archs.load(arch)
+    if hasattr(module, "run_steps"):
+        return module.run_steps(arch, settings, host, rows, params0, seed, train_idxs, device,
+                                quant=quant, checked=checked)
+    Net = module.Net
     order = settings["augment_order"]
     strict = settings["ool_mode"] == "strict"
     factor = float(settings["pre_interpolation_factor"])
@@ -172,7 +180,8 @@ def run_steps(arch: dict, settings: dict, host: dict, rows: list, params0: dict,
     params = {k: v.detach().clone().float().requires_grad_(True) for k, v in params0.items()}
     opt = AdamW(params)
     running = {n: (torch.zeros(params[f"{n}.scale"].shape, device=device),
-                   torch.ones(params[f"{n}.scale"].shape, device=device)) for n in bn_names(arch)}
+                   torch.ones(params[f"{n}.scale"].shape, device=device))
+               for n in module.stat_names(arch)}
     rows_total = host["atlases"].shape[0] * host["atlases"].shape[1]
     dp = torch.full((rows_total,), float(settings["init_inst_param"]), device=device)
     mu, nu = torch.zeros_like(dp), torch.zeros_like(dp)

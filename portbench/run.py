@@ -4,12 +4,14 @@
 
 from the root of a checkout that holds `BENCHMARK.json`, `portbench/` and
 `deep_staple_torch/`. The cell names a configuration (`configs/<name>.json`:
-the model's widths and the training and serving settings) and a traffic mix
+the model's widths and the training and serving settings), whose
+`model.arch` names its architecture (`archs/<arch>.py`: the parameters'
+shapes, the reference forward and the FLOP counts), and a traffic mix
 (`traffic/<name>.json`: the inputs' parameters and the entry that drives
 them, `entries/<entry>.py`); its limits are `limits/<cell>.json`; each
 per-layer metric is read by `metrics/<metric>.py`. Everything is found by
-the names in `BENCHMARK.json`, so a new cell, configuration or metric is a
-new file.
+the names in `BENCHMARK.json` and the configurations, so a new cell,
+configuration, architecture or metric is a new file.
 
 The run makes its inputs and weights from the seed, warms up (set-up), holds
 the window for `--seconds`, then checks what the window produced against the

@@ -4,8 +4,11 @@
 `tiny_root` is a throwaway checkout root: `BENCHMARK.json` with every cell
 pointed at a tiny traffic file and its configurations at a tiny serving
 size, beside a copy of `portbench/`, so that a cell runs on the CPU in
-seconds. Tests that need the card take the `card` fixture (marker `card`):
-it skips without CUDA, decided when the test runs.
+seconds. It also holds a throwaway architecture added as new files only
+(`add_tiny_arch`): `archs/TinyConvNet3D.py`, its configuration and a
+training cell, which the port cannot run. Tests that need the card take
+the `card` fixture (marker `card`): it skips without CUDA, decided when the
+test runs.
 """
 
 from __future__ import annotations
@@ -37,7 +40,91 @@ def card():
     return torch.device("cuda", 0)
 
 
+TINY_ARCH = '''"""A throwaway architecture: two 3x3x3 convs with ReLU and a 1x1x1 head."""
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from portbench import flops
+
+
+def param_shapes(arch):
+    c, n = arch["channels"], arch["num_classes"]
+    return {"conv_0.kernel": ((c, arch["in_channels"], 3, 3, 3), "fan_out"),
+            "conv_1.kernel": ((c, c, 3, 3, 3), "fan_out"),
+            "head.kernel": ((n, c, 1, 1, 1), "fan_in"),
+            "head.bias": ((n,), "fan_in_bias:head.kernel")}
+
+
+def stat_names(arch):
+    return []
+
+
+def head_bias(arch):
+    return "head.bias"
+
+
+def parameter_count(arch):
+    return sum(math.prod(shape) for shape, _ in param_shapes(arch).values())
+
+
+def forward_flops(arch, batch, spatial):
+    c, n = arch["channels"], arch["num_classes"]
+    taps = math.prod(flops.tap_pairs(s) for s in spatial)
+    return 2 * batch * (taps * (arch["in_channels"] + c) * c + math.prod(spatial) * c * n)
+
+
+def dw_calls(arch, batch, spatial):
+    return []
+
+
+class Net:
+    def __init__(self, arch, params, bn_mode, quant=None, stats=None, remat=False):
+        self.p, self.q = params, quant or (lambda t: t)
+        self.batch_stats = {}
+
+    def __call__(self, x, keep=None):
+        q, p = self.q, self.p
+        h = torch.relu(q(F.conv3d(q(x), q(p["conv_0.kernel"]), padding=1)))
+        h = torch.relu(q(F.conv3d(h, q(p["conv_1.kernel"]), padding=1)))
+        return q(F.conv3d(h, q(p["head.kernel"]), q(p["head.bias"])))
+'''
+TINY_MODEL = {"arch": "TinyConvNet3D", "in_channels": 1, "num_classes": 2, "channels": 8,
+              "parameters": 27 * 8 + 27 * 64 + 16 + 2}
+
+
+def add_tiny_arch(root: Path) -> None:
+    """A new architecture as new files (its module, its configuration) and
+    new entries of `BENCHMARK.json` (the configuration, a training cell,
+    the cell in the training metrics' lists); no file edited."""
+    (root / "portbench" / "archs" / "TinyConvNet3D.py").write_text(TINY_ARCH)
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    base = json.loads((root / "portbench/configs/lraspp3d-reference.json").read_text())
+    config = {**base, "name": "tinyconv3d", "model": TINY_MODEL, "control": "tf32",
+              "reduced": []}
+    (root / "portbench/configs/tinyconv3d.json").write_text(json.dumps(config))
+    bench["configs"].append({"name": "tinyconv3d", "source": "a throwaway test architecture",
+                             "file": "portbench/configs/tinyconv3d.json", "reduced": [],
+                             "why": "a new architecture as new files"})
+    bench["workloads"].append({"name": "train-tinyconv", "config": "tinyconv3d",
+                               "traffic": "train-b8-tiny", "chips": 1,
+                               "why": "a new architecture as new files"})
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if "train-ref-b8" in m.get("workloads", []):
+            m["workloads"].append("train-tinyconv")
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+
+
 def make_tiny_root(dest: Path) -> Path:
+    tiny_checkout(dest)
+    add_tiny_arch(dest)
+    return dest
+
+
+def tiny_checkout(dest: Path) -> Path:
+    """The tiny cells' root without the throwaway architecture."""
     shutil.copytree(REPO / "portbench", dest / "portbench",
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
     bench = json.loads((REPO / "BENCHMARK.json").read_text())

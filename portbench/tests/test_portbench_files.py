@@ -78,12 +78,14 @@ def test_names_and_units():
 
 
 def test_config_files_state_the_model():
+    """Each configuration's parameter count is its own architecture's."""
+    from portbench import archs
+
     for c in BENCH["configs"]:
         cf = json.loads((REPO / c["file"]).read_text())
         assert cf["name"] == c["name"] and cf["reduced"] == c["reduced"]
-        from portbench import flops
-
-        assert flops.parameter_count(cf["model"]) == cf["model"]["parameters"]
+        model = cf["model"]
+        assert archs.load(model).parameter_count(model) == model["parameters"]
 
 
 def _imports(path: Path):

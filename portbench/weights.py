@@ -1,12 +1,16 @@
 """The weights both sides are given: drawn on the device from the run's
 seed, in a few large calls, under the names of the port's `state_dict`.
+The names, shapes and initializer tags are the architecture's
+(`archs.load(arch).param_shapes`); an architecture with a `make_weights`
+of its own draws its weights there instead.
 
-Kernels follow the initializers' distributions (the backbone's convs a
-normal of variance 2 / fan_out cut at two standard deviations, the ASPP's
-and head's convs and biases uniform within 1 / sqrt(fan_in)). For training,
-BatchNorm starts at the identity (scale 1, bias 0, running statistics (0,
-1)), as a run does. For serving, a trained model's BatchNorm is stood in for
-by scales and biases near (1, 0) and running statistics near (0, 1).
+For MobileNet-LRASPP-3D, kernels follow the initializers' distributions
+(the backbone's convs a normal of variance 2 / fan_out cut at two standard
+deviations, the ASPP's and head's convs and biases uniform within 1 /
+sqrt(fan_in)). For training, BatchNorm starts at the identity (scale 1,
+bias 0, running statistics (0, 1)), as a run does. For serving, a trained
+model's BatchNorm is stood in for by scales and biases near (1, 0) and
+running statistics near (0, 1).
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ import math
 
 import torch
 
-from .reference.model import bn_names, param_shapes
+from . import archs
 
 CUT = 2.0
 CUT_STD = 0.87962566103423978  # standard deviation of N(0, 1) cut at +-2
@@ -32,7 +36,10 @@ def _fan(shape, depthwise: bool):
 def make_weights(arch: dict, seed: int, device, served: bool = False):
     """-> (params, stats): name -> float32 tensor on `device`, and BatchNorm
     prefix -> (running mean, running var)."""
-    shapes = param_shapes(arch)
+    module = archs.load(arch)
+    if hasattr(module, "make_weights"):
+        return module.make_weights(arch, seed, device, served)
+    shapes = module.param_shapes(arch)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed % (2**63))
     total = sum(math.prod(s) for s, _ in shapes.values())
@@ -57,7 +64,7 @@ def make_weights(arch: dict, seed: int, device, served: bool = False):
         else:
             params[name] = 0.1 * z if served else torch.zeros(shape, device=device)
     stats = {}
-    for i, name in enumerate(bn_names(arch)):
+    for i, name in enumerate(module.stat_names(arch)):
         C = shapes[f"{name}.scale"][0][0]
         if served:
             g = torch.Generator(device=device)
@@ -97,9 +104,8 @@ def balance_classes(arch: dict, params: dict, stats: dict, volume) -> None:
     forward of `volume` (D, H, W) splits its voxels about evenly between the
     two classes: random weights otherwise tend to give one class
     everywhere, where the argmax check would see no boundary."""
-    from .reference.model import Net
-
+    module = archs.load(arch)
     with torch.no_grad():
-        logits = Net(arch, params, "eval", stats=stats)(volume[None, None].float())
+        logits = module.Net(arch, params, "eval", stats=stats)(volume[None, None].float())
         diff = (logits[:, 1] - logits[:, 0]).flatten()
-        params["head.Conv_1.bias"][1] -= diff.median()
+        params[module.head_bias(arch)][1] -= diff.median()
