@@ -4,6 +4,12 @@ The same fields, enums and JSON form as the JAX package's `TrainConfig`, so a
 `config.json` written by either package reads in the other
 (`from_dict` ignores keys it does not know). The field comments of the JAX
 package explain each knob; only the port's differences are noted here.
+
+The port's own field `model_arch` selects the 3D network: 'lraspp3d'
+(MobileNet-LRASPP-3D, the JAX package's) or 'plainconvunet3d' (nnU-Net v2's
+`PlainConvUNet`, `models/plainconvunet3d.py`, which the JAX package does
+not have). `to_dict` leaves it out at its default, so that a MobileNet
+run's `config.json` is the JAX package's.
 """
 
 from __future__ import annotations
@@ -12,6 +18,9 @@ import dataclasses
 from dataclasses import dataclass
 from enum import Enum, auto
 from typing import Optional, Tuple
+
+
+MODEL_ARCHS = ("lraspp3d", "plainconvunet3d")
 
 
 class DataParamMode(Enum):
@@ -94,6 +103,7 @@ class TrainConfig:
     bn_mode: str = "batch"  # 'batch' | 'async' | 'slab'; eval is the same in all
     bn_warmup_epochs: int = 1
     use_checkpointing: bool = True
+    model_arch: str = "lraspp3d"  # the port's: 'lraspp3d' | 'plainconvunet3d'
     mesh_data_axis: int = 1
     mesh_space_axis: int = 1
     mesh_model_axis: int = 1
@@ -113,6 +123,10 @@ class TrainConfig:
             raise ValueError(
                 f"bn_mode {self.bn_mode!r} (expected 'batch', 'async' or 'slab')"
             )
+        if self.model_arch not in MODEL_ARCHS:
+            raise ValueError(f"model_arch {self.model_arch!r} (expected one of {MODEL_ARCHS})")
+        if self.model_arch == "plainconvunet3d":
+            self._check_unet()
         if self.mesh_pipe_stages not in (1, 2):
             raise ValueError(
                 f"mesh_pipe_stages {self.mesh_pipe_stages!r} (the model has "
@@ -149,6 +163,26 @@ class TrainConfig:
                     "the model, which does not decompose over microbatches"
                 )
 
+    def _check_unet(self):
+        """The options `PlainConvUNet` cannot run with."""
+        refused = [
+            (self.bn_mode != "batch", f"bn_mode {self.bn_mode!r}: its InstanceNorm keeps no "
+             "batch statistics (use bn_mode='batch')"),
+            (self.use_checkpointing, "use_checkpointing: it has no remat segments"),
+            (self.data_param_mode == DataParamMode.INSTANCE_PARAMS and not self.use_ool_dp_loss,
+             "use_ool_dp_loss=False: its deep-supervision loss runs out of line only"),
+            (self.use_2d_normal_to is not None, "use_2d_normal_to: it is a 3D network"),
+            (self.mesh_data_axis > 1, "mesh_data_axis > 1: its data-parallel step is untested"),
+            (self.mesh_model_axis > 1, "mesh_model_axis > 1: it has no tensor-parallel layout"),
+            (self.mesh_space_axis > 1, "mesh_space_axis > 1: it has no spatial sharding"),
+            (self.mesh_pipe_stages > 1, "mesh_pipe_stages > 1: it has no pipeline cut"),
+            (self.checkpoint_backend == "orbax",
+             "checkpoint_backend 'orbax': the JAX package has no such network"),
+        ]
+        for bad, why in refused:
+            if bad:
+                raise ValueError(f"model_arch 'plainconvunet3d' refuses {why}")
+
     def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)
 
@@ -171,6 +205,8 @@ class TrainConfig:
 
     def to_dict(self) -> dict:
         d = dataclasses.asdict(self)
+        if d["model_arch"] == "lraspp3d":
+            del d["model_arch"]
         for k, v in d.items():
             if isinstance(v, Enum):
                 d[k] = str(v)

@@ -38,6 +38,15 @@ over the global count, then averaged over the data group as above; 'slab'
 subsamples D, which no space group splits. The running statistics are updated in
 place, once per forward: a checkpointed recomputation (`models/remat.py`)
 makes no update and normalizes as the first run did.
+
+`InstanceNorm` (nnU-Net's `PlainConvUNet`, `models/plainconvunet3d.py`)
+normalizes each sample's channel over its spatial axes, through that
+sample's statistics with their gradient, and keeps no running statistics:
+parameters `weight` and `bias` (torch's `InstanceNorm3d(affine=True)`
+names), eps 1e-5, the biased variance E[x^2] - E[x]^2 from float32 sums of
+the channels-last input and of its square (the square in the input dtype),
+and the same one-pass x * mul + (bias - mean * mul) as BatchNorm's, in
+float32, cast to the input dtype. Train and eval are the same.
 """
 
 from __future__ import annotations
@@ -131,3 +140,26 @@ class BatchNorm(nn.Module):
             var = mean2 - mean * mean
         self._update(mean, var, seeded=True)
         return self._affine(x, mean, var)
+
+
+class InstanceNorm(nn.Module):
+    """Channels-last InstanceNorm over every axis but the first (the
+    sample) and the last (the channel), affine, no running statistics."""
+
+    def __init__(self, num_features: int, epsilon: float = 1e-5):
+        super().__init__()
+        self.epsilon = epsilon
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+
+    def forward(self, x):
+        axes = tuple(range(1, x.dim() - 1))
+        acc = torch.promote_types(x.dtype, torch.float32)
+        n = x[0, ..., 0].numel()
+        # Float32 sums of a bfloat16 x read it as it is, with no float32 copy.
+        mean = x.sum(axes, keepdim=True, dtype=acc) / n
+        mean2 = (x * x).sum(axes, keepdim=True, dtype=acc) / n
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + self.epsilon) * self.weight
+        add = self.bias - mean * mul
+        return torch.addcmul(add, x, mul).to(x.dtype)

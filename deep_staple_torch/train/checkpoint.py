@@ -21,6 +21,9 @@ directory of its `DeepStapleState` (`train/orbax_io.py`; no orbax or
 tensorstore), before `state.msgpack`, flax's msgpack form of it
 (`train/flax_msgpack.py`; no `msgpack` package), as JAX restores them.
 Where a directory holds the port's `state.pt` too, `state.pt` wins.
+The JAX package has no `PlainConvUNet` (`models/plainconvunet3d.py`), so
+its formats refuse that network both ways, with a ValueError
+(`_require_jax_model`); `state.pt` holds it as any other model.
 `save_jax_checkpoint` writes a `state.msgpack`; `save_checkpoint` with
 backend 'orbax' writes a `state.orbax` (uncompressed) that the JAX package
 restores, and the 'msgpack' and 'torch' backends write `state.pt`. Each
@@ -74,12 +77,23 @@ def _write(path, state: dict, config: TrainConfig | None):
     _write_config(path, config)
 
 
+def _require_jax_model(model) -> None:
+    """Refuse a network the JAX package's checkpoints cannot hold."""
+    from ..models.plainconvunet3d import PlainConvUNet3D
+
+    if isinstance(model, PlainConvUNet3D):
+        raise ValueError("PlainConvUNet3D has no JAX counterpart: its checkpoint is the port's "
+                         "state.pt (backend 'msgpack' or 'torch'), not state.orbax or "
+                         "state.msgpack")
+
+
 def _write_orbax(path: Path, state: DeepStapleState, config: TrainConfig | None):
     """`state` as JAX's `state.orbax`, written beside and moved in place once
     complete; then the port's `state.pt` and JAX's `state.msgpack`, which
     would shadow it, go."""
     from ..models.interop import state_to_jax
 
+    _require_jax_model(state.model)
     path.mkdir(parents=True, exist_ok=True)
     tmp = path / "state.orbax.tmp"
     write_orbax(tmp, state_to_jax(state))
@@ -151,6 +165,7 @@ def restore_checkpoint(path, template_state: DeepStapleState) -> DeepStapleState
         from ..models.interop import state_from_jax
 
         model = template_state.model
+        _require_jax_model(model)
         return state_from_jax(jax_tree, model, device=next(model.parameters()).device,
                               optimizer=template_state.optimizer)
     saved = torch.load(Path(path) / "state.pt", map_location="cpu", weights_only=True)
@@ -195,6 +210,7 @@ def save_jax_checkpoint(path, state: DeepStapleState, config: TrainConfig | None
     `models/interop.state_to_jax`) and `config.json`."""
     from ..models.interop import state_to_jax
 
+    _require_jax_model(state.model)
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
     tmp = path / "state.msgpack.tmp"
@@ -214,6 +230,7 @@ def restore_weights(path, model: torch.nn.Module) -> torch.Tensor | None:
     if jax_tree is not None:
         from ..models.interop import load_flax_variables
 
+        _require_jax_model(model)
         load_flax_variables(model, {"params": jax_tree["params"],
                                     "batch_stats": jax_tree["batch_stats"]})
         dp = jax_tree["dp_params"]

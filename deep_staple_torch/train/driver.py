@@ -101,7 +101,7 @@ import torch.distributed as dist
 from ..core.config import DataParamMode, TrainConfig
 from ..core.determinism import reset_determinism
 from ..core.device import resolve_device
-from ..models import LRASPPMobileNetV3Large2D, MobileNetLRASPP3D
+from ..models import LRASPPMobileNetV3Large2D, MobileNetLRASPP3D, PlainConvUNet3D
 from ..models.lraspp3d import attach_space_group
 from ..ops.augment import AugmentDraws, AugmentParams, check_order, draw_augment
 from ..ops.dice import batch_dice_over_all, batch_dice_per_class, dice_from_int_labels
@@ -162,9 +162,11 @@ def spearman_corr(a, b):
 def make_model(config: TrainConfig, num_classes: int):
     """-> (model, input channels): the 2D LR-ASPP MobileNetV3 with
     `use_2d_normal_to` (which has no `bn_mode`: it says so and uses exact
-    BatchNorm, `driver.py:75-89`), else the 3D model."""
+    BatchNorm, `driver.py:75-89`), else the 3D model `model_arch` names."""
     in_ch = 12 if config.use_mind else 1
     dtype = torch.bfloat16 if config.compute_dtype == "bfloat16" else None
+    if config.model_arch == "plainconvunet3d":
+        return PlainConvUNet3D(num_classes=num_classes, in_channels=in_ch, dtype=dtype), in_ch
     if config.use_2d_normal_to is not None:
         if config.bn_mode != "batch":
             print(f"bn_mode {config.bn_mode!r} is a 3D-path lever; the 2D model "

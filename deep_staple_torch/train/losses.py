@@ -25,6 +25,24 @@ term's count of `pred > 0` the slab's over the same count, so that the DP
 loss's shares sum over the space group to the sample's terms with no
 collective; the DP weights' batch mean spans the data group only, because
 the ranks of a space group hold the same samples.
+
+Deep supervision (`deep_supervision_ce`, for a model whose train forward
+returns "aux" heads: nnU-Net v2's `PlainConvUNet`, `models/
+plainconvunet3d.py`): nnU-Net's `DeepSupervisionWrapper` over DeepSTAPLE's
+class-weighted CE,
+
+    L = sum_k w_k CE_k,   w = [1, 1/2, 1/4, ...] with the last weight 0,
+                          normalised to sum 1 ([1, 1/2, 1/4, 1/8, 0] / 1.875
+                          for the five heads of the 3d_fullres network),
+
+where CE_k is `weighted_cross_entropy` of head k against the label selected
+at that head's grid by order 0 (nearest): `lbl[:, ::sD, ::sH, ::sW]` at the
+head's cumulative stride. A head of weight 0 is computed by the model, but
+its loss is skipped, as the wrapper skips it. Departures from nnU-Net: no
+Dice term (DeepSTAPLE's objective is the CE alone, and the data parameters
+weight a per-sample CE), and the targets are strided selections where
+nnU-Net resamples the segmentation with order 0 (the same voxels where the
+extent divides by the stride).
 """
 
 from __future__ import annotations
@@ -83,3 +101,27 @@ def dp_loss_fn(dp_logits, targets, bare_params_batch, fixed_weighting_batch=None
         numel = float(math.prod(pred.shape[1:]) if voxels is None else voxels)
         loss = loss + (-w * p_pred_num / numel).sum()
     return loss
+
+
+def deep_supervision_weights(heads: int) -> list:
+    """nnU-Net's weights of `heads` outputs: 1 / 2^k, the last 0, normalised."""
+    w = [0.5**k for k in range(heads)]
+    w[-1] = 0.0
+    return [x / sum(w) for x in w]
+
+
+def deep_supervision_ce(logits, targets, class_weights):
+    """sum_k w_k CE_k over the heads `logits` (full resolution first, each
+    (B, D_k, H_k, W_k, C)) against order-0 selections of `targets` (B, D,
+    H, W) at each head's stride; heads of weight 0 are skipped. -> (loss,
+    the number of heads whose CE was computed)."""
+    total, used = None, 0
+    for w, head in zip(deep_supervision_weights(len(logits)), logits):
+        if w == 0.0:
+            continue
+        step = [n // m for n, m in zip(targets.shape[1:], head.shape[1:4])]
+        tgt = targets[:, ::step[0], ::step[1], ::step[2]]
+        ce = w * weighted_cross_entropy(head, tgt, class_weights)
+        total = ce if total is None else total + ce
+        used += 1
+    return total, used

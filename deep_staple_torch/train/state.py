@@ -12,7 +12,7 @@ import torch
 from torch import nn
 
 from ..core.device import resolve_device
-from ..models import lraspp2d, lraspp3d
+from ..models import lraspp2d, lraspp3d, plainconvunet3d
 from .optim import SparseAdamState, make_model_optimizer, sparse_adam_init
 
 
@@ -46,7 +46,9 @@ def create_state(model: nn.Module, dataset_len: int, seed: int = 0, init_inst_pa
     the CPU, so that every device starts from the same weights, move it to
     `device` (CUDA unless "cpu" is asked for), and build the optimizers."""
     dev = resolve_device(device)
-    init = lraspp2d if isinstance(model, lraspp2d.LRASPPMobileNetV3Large2D) else lraspp3d
+    init = (lraspp2d if isinstance(model, lraspp2d.LRASPPMobileNetV3Large2D)
+            else plainconvunet3d if isinstance(model, plainconvunet3d.PlainConvUNet3D)
+            else lraspp3d)
     init.init_weights(model.cpu(), torch.Generator().manual_seed(seed))
     model.to(dev)
     dp, dp_opt = (make_dp_state(dataset_len, init_inst_param, dp_override_values, dev)

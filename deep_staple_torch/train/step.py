@@ -5,7 +5,10 @@ One `train_step` call does what the reference does per batch
 
   1. augmentation on the device (`ops/augment.py`; draws from the step's
      generator unless the caller passes them),
-  2. forward, class-weighted CE and an AdamW update of the model,
+  2. forward, class-weighted CE and an AdamW update of the model (for a
+     model with deep-supervision heads, nnU-Net's `PlainConvUNet`, their
+     weighted CE, `losses.deep_supervision_ce`; the DP pass and the Dice
+     read the full-resolution head alone),
   3. the data-parameter (DP) pass:
        - 'strict' out-of-line: a second train-mode forward with the updated
          parameters (BatchNorm statistics advance twice, except with async
@@ -34,7 +37,9 @@ warp (K1) warps each rank's own rows, as JAX's `shard_map` does.
 
 While `utils/tracing.py` records, a step's phases are spans:
 `step.augment` (the draws where none are given, the warp, the features),
-`step.forward` (the forward and its loss), `step.backward` (the gradient of
+`step.forward` (the forward and its loss; the deep-supervision CE in
+`step.ds_loss`, with the counter `ds_heads`, the heads whose loss was
+computed), `step.backward` (the gradient of
 that loss; under remat it holds the recomputed forward), `step.optimizer`
 (AdamW with its collectives), `step.dp_pass` (strict OOL's second forward,
 the DP loss and its gradient), `step.dp_optimizer` (SparseAdam's rows) and
@@ -69,7 +74,7 @@ from ..parallel.mesh import attach_data_group
 from ..parallel.spatial import SlabAxis, even_bounds, gather_slabs, slab_axes
 from ..parallel.tensor import replicated_parameters
 from ..utils import tracing
-from .losses import dp_loss_fn, weighted_cross_entropy
+from .losses import deep_supervision_ce, dp_loss_fn, weighted_cross_entropy
 from .optim import row_mask, set_lr, sparse_adam_update
 from .state import DeepStapleState
 
@@ -180,6 +185,21 @@ def make_train_step(model, config: TrainConfig, class_weights, fixed_weighting,
     def forward(x, generator):
         return model(x, train=True, generator=generator)["out"]
 
+    def forward_ce(x, generator, mod):
+        """The train forward and the model's loss -> (full-resolution
+        logits, loss, whether some parameters may take no part in it): the
+        class-weighted CE, or, where the model returns deep-supervision
+        heads ("aux"), their weighted CE, in which the head of weight 0
+        takes no part."""
+        out = model(x, train=True, generator=generator)
+        if "aux" not in out:
+            ce = weighted_cross_entropy(out["out"], mod, class_weights, data, space)
+            return out["out"], ce, False
+        with tracing.span("step.ds_loss"):
+            loss, used = deep_supervision_ce([out["out"], *out["aux"]], mod, class_weights)
+            tracing.count("ds_heads", used)
+        return out["out"], loss, used < len(out["aux"]) + 1
+
     def dp_objective(dp_logits, mod, dp_vec, idxs, voxels):
         fixed = fixed_weighting[idxs] if config.use_fixed_weighting else None
         return dp_loss_fn(dp_logits, mod, dp_vec[idxs], fixed, config.use_risk_regularization,
@@ -244,10 +264,11 @@ def make_train_step(model, config: TrainConfig, class_weights, fixed_weighting,
             strict_async = use_dp and config.ool_mode == "strict" and async_bn
             start = {n: b.clone() for n, b in model.named_buffers()} if strict_async else None
             with tracing.span("step.forward"):
-                logits = forward(x, generator)
-                ce_loss = weighted_cross_entropy(logits, mod, class_weights, data, space)
+                logits, ce_loss, unused = forward_ce(x, generator, mod)
             with tracing.span("step.backward"):
-                grads = torch.autograd.grad(ce_loss, params)
+                # A deep-supervision head of weight 0 gets no gradient (None):
+                # AdamW then skips its parameters, as nnU-Net's optimizer does.
+                grads = torch.autograd.grad(ce_loss, params, allow_unused=unused)
             with tracing.span("step.optimizer"):
                 apply_grads(state, params, grads, lr)
             logits, ce_loss = logits.detach(), total(ce_loss.detach())
